@@ -1,0 +1,116 @@
+"""Full FSAR models: backbone + matching head.
+
+Port of ``clipspm_tpu/models/fsar.py``. The backbone encodes the support and
+query frames; the head consumes per-frame features; text tables are inputs
+gathered per episode. Under ``USE_AMP`` the forward runs under bf16 autocast
+(convolutions and matmuls in bf16; norms in fp32; the OTAM DP in fp32).
+"""
+
+from __future__ import annotations
+
+from contextlib import nullcontext
+from typing import Dict, Mapping, Optional
+
+import torch
+from torch import nn
+
+from .backbones.clip import CLIP_ARCHS, CLIPArch
+from .heads.clipspm import CLIPSPM
+from .visual import encode_chunked, make_clip_visual
+
+
+class CLIPSPMModel(nn.Module):
+    """CLIP visual tower + CLIPSPM head.
+
+    Shapes (S=way*shot, Q=way*queries, T=seq_len, C=classes in the split):
+        support_images: ``[S, T, H, W, 3]`` float (0-1)
+        target_images: ``[Q, T, H, W, 3]``
+        support_labels: ``[S]`` episode-relative
+        real_support_labels / real_target_labels: ``[S]`` / ``[Q]``
+            dataset-level (text-table rows)
+        text_train / text_test: ``[C, D]`` class-text tables
+    The train/test table follows ``self.training``. Returns
+    dict(logits=``[1, Q, way]``, dists=scalar).
+    """
+
+    def __init__(self, arch: CLIPArch, way: int, shot: int,
+                 spm: Mapping[str, float], single_direct: bool = False,
+                 encode_chunk: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.arch = arch
+        self.encode_chunk = encode_chunk
+        self.compute_dtype = compute_dtype
+        self.backbone = make_clip_visual(arch)
+        self.head = CLIPSPM(dim=arch.embed_dim, way=way, shot=shot, spm=spm,
+                            single_direct=single_direct)
+
+    def _compute(self, device: torch.device):
+        if self.compute_dtype is None:
+            return nullcontext()
+        return torch.autocast(device.type, dtype=self.compute_dtype)
+
+    def forward(self, support_images, target_images, support_labels,
+                real_support_labels, real_target_labels, text_train,
+                text_test) -> Dict[str, torch.Tensor]:
+        S, Q = support_images.shape[0], target_images.shape[0]
+        feats = self.encode(torch.cat([support_images, target_images], dim=0))
+        return self.match_features(feats[:S], feats[S:S + Q], support_labels,
+                                   real_support_labels, real_target_labels,
+                                   text_train, text_test)
+
+    def feature_cacheable(self) -> bool:
+        """Per-video features fully determine this head's inputs
+        (train/feature_cache.py)."""
+        return True
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """``[N, T, H, W, 3]`` frames -> ``[N, T, D]`` per-frame features."""
+        N, T = images.shape[:2]
+        flat = images.reshape((N * T,) + tuple(images.shape[2:]))
+        with self._compute(images.device):
+            feats = encode_chunked(self.backbone, flat, self.encode_chunk)
+        return feats.reshape(N, T, feats.shape[-1])
+
+    def match_features(self, su, qu, support_labels, real_support_labels,
+                       real_target_labels, text_train, text_test
+                       ) -> Dict[str, torch.Tensor]:
+        """Head over precomputed features ``su [S,T,D]`` / ``qu [Q,T,D]``."""
+        table = text_train if self.training else text_test
+        context_support = table[real_support_labels.long()][:, None, :]
+        target_context = table[real_target_labels.long()][:, None, :]
+        with self._compute(su.device):
+            return self.head(su, qu, support_labels, context_support,
+                             target_context)
+
+
+def build_model(cfg) -> nn.Module:
+    """Construct the model named by ``cfg.MODEL.NAME``. Only ``clipspm`` is
+    ported; ``MODEL.OTAM_BACKEND`` is not read (on a GPU the OTAM DP is
+    always kernel K1)."""
+    name = cfg.MODEL.NAME
+    if name != "clipspm":
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP.md, open items "
+            "'the other heads' and 'the ResNet family'); the port builds "
+            "'clipspm'")
+    for knob in ("FAST_SOFTMAX", "BF16_NORMS", "INT8_EVAL"):
+        if cfg.MODEL.get(knob, False):
+            raise NotImplementedError(
+                f"MODEL.{knob} is a JAX-package numerics option the port "
+                "does not carry")
+    backbone = cfg.MODEL.BACKBONE
+    if backbone not in CLIP_ARCHS:
+        raise ValueError(f"unknown CLIP backbone {backbone!r}")
+    chunk_cfg = cfg.MODEL.get("ENCODE_CHUNK", None)
+    if chunk_cfg is True:
+        chunk = 30
+    else:
+        chunk = int(chunk_cfg or 0)
+    return CLIPSPMModel(
+        arch=CLIP_ARCHS[backbone], way=int(cfg.TRAIN.WAY),
+        shot=int(cfg.TRAIN.SHOT), spm=dict(cfg.params),
+        single_direct=bool(cfg.MODEL.get("SINGLE_DIRECT", False)),
+        encode_chunk=chunk,
+        compute_dtype=(torch.bfloat16 if cfg.get("USE_AMP", False)
+                       else None))

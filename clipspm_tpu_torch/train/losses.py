@@ -1,0 +1,53 @@
+"""Episodic losses and metrics + per-model loss dispatch.
+
+Port of ``clipspm_tpu/train/losses.py`` for the ported heads:
+``episodic_ce`` is a logsumexp over the sample dim (size 1 in practice)
+followed by a **sum** over queries; ``aggregate_accuracy`` is the argmax of
+that logsumexp.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# loss branches of the JAX dispatch not ported yet: their heads are not
+PENDING_BRANCHES = ("strm", "molo", "clipfsar", "cpm2c", "soap")
+
+
+def episodic_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Args: logits ``[n_samples, Q, way]``, labels ``[Q]``. Returns the
+    sum over queries of the sample-averaged cross-entropy."""
+    n = logits.shape[0]
+    logp = F.log_softmax(logits.float(), dim=-1)
+    idx = labels.long()[None, :, None].expand(n, -1, 1)
+    log_py = logp.gather(-1, idx)[..., 0]                  # [n, Q]
+    score = torch.logsumexp(log_py, dim=0) - math.log(float(n))
+    return -score.sum()
+
+
+def aggregate_accuracy(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    avg = torch.logsumexp(logits.float(), dim=0)
+    pred = avg.argmax(dim=-1)
+    return (pred == labels.to(pred.dtype)).float().mean()
+
+
+def loss_and_acc(model_name: str, outputs: Dict[str, torch.Tensor],
+                 target_labels: torch.Tensor, tasks_per_batch: int,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-model loss dispatch: ``(loss, accuracy)`` for one episode. The
+    ``1/tasks_per_batch`` factor is part of the loss."""
+    tpb = float(tasks_per_batch)
+    logits = outputs["logits"]
+    if model_name in PENDING_BRANCHES:
+        raise NotImplementedError(
+            f"the {model_name!r} loss branch is not ported yet (ROADMAP.md, "
+            "open item 'the other heads')")
+    loss = episodic_ce(logits, target_labels) / tpb
+    if model_name == "clipspm":
+        loss = loss + 0.001 * outputs["dists"]
+    return loss, aggregate_accuracy(logits, target_labels)

@@ -1,0 +1,211 @@
+"""Construction: config -> (model, weights, text tables, data, learner).
+
+Port of the eval half of ``clipspm_tpu/train/setup.py``. Pretrained CLIP
+weights load from a local OpenAI ``.pt`` (``$CLIP_WEIGHTS_DIR`` or
+``~/.cache/clip``) straight into the port's OpenAI-named modules, never from
+the network; without one the towers start from a seeded random init and an
+evaluation refuses to run unless random weights are explicitly allowed.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+from typing import Optional, Tuple
+
+import torch
+
+from .. import resolve_device, set_matmul_precision
+from ..data.sampler import EpisodeSampler
+from ..data.splits import load_split
+from ..models.backbones.clip import CLIP_ARCHS, CLIPArch, CLIPModel
+from ..models.backbones.tokenizer import get_tokenizer
+from ..models.fsar import build_model
+from ..models.text_features import (PROMPT_TEMPLATES, SINGLE_TEMPLATE,
+                                    encode_class_text_tables)
+from ..weights import random_init_
+from .learner import Learner
+
+# model files named as in the OpenAI release, with their SHA-256 digests
+_CLIP_FILES = {"RN50": "RN50.pt"}
+CLIP_CHECKPOINT_SHA256 = {
+    "RN50.pt":
+        "afeb0e10f9e5a86da6080e35cf09123aca3b358a0c3e3b6c78a7b63bc04b6762",
+}
+
+SINGLE_PROMPT_HEADS = ("clipfsar", "sten")
+
+
+class DegradedModeError(RuntimeError):
+    """A CLIP head would run with meaningless weights or vocab."""
+
+
+def find_clip_checkpoint(backbone: str) -> Optional[str]:
+    fname = _CLIP_FILES.get(backbone)
+    if fname is None:
+        return None
+    for root in (os.environ.get("CLIP_WEIGHTS_DIR"),
+                 os.path.expanduser("~/.cache/clip")):
+        if root and os.path.isfile(os.path.join(root, fname)):
+            return os.path.join(root, fname)
+    return None
+
+
+def _verify_sha256(path: str) -> None:
+    expected = CLIP_CHECKPOINT_SHA256.get(os.path.basename(path))
+    if expected is None:
+        return
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    if h.hexdigest() != expected:
+        raise RuntimeError(
+            f"checkpoint integrity failure: {path} is not the official "
+            f"{os.path.basename(path)} release (SHA-256 mismatch). Re-fetch "
+            "it, or set CLIPSPM_SKIP_WEIGHT_VERIFY=1 for a custom file.")
+
+
+def infer_arch_from_state_dict(sd) -> CLIPArch:
+    """RN-family architecture from an OpenAI state dict's shapes."""
+    if "visual.proj" in sd:
+        raise NotImplementedError("ViT checkpoints wait for the ViT tower "
+                                  "(ROADMAP.md, open item 'ViT-B/16')")
+    counts = tuple(len({k.split(".")[2] for k in sd
+                        if k.startswith(f"visual.layer{b}")})
+                   for b in (1, 2, 3, 4))
+    out_width = round(
+        (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+    width = sd["ln_final.weight"].shape[0]
+    return CLIPArch(
+        embed_dim=sd["text_projection"].shape[1],
+        image_resolution=out_width * 32, vision_layers=counts,
+        vision_width=sd["visual.layer1.0.conv1.weight"].shape[0],
+        vision_patch_size=None,
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        transformer_width=width, transformer_heads=max(1, width // 64),
+        transformer_layers=len({k.split(".")[2] for k in sd
+                                if k.startswith("transformer.resblocks")}))
+
+
+def load_clip_checkpoint(path: str, verify: bool = True) -> CLIPModel:
+    """An OpenAI CLIP ``.pt`` (TorchScript archive or state dict) loaded
+    into the port's OpenAI-named modules."""
+    if verify:
+        _verify_sha256(path)
+    try:
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:
+        sd = torch.load(path, map_location="cpu")
+    for key in ("input_resolution", "context_length", "vocab_size"):
+        sd.pop(key, None)
+    model = CLIPModel(infer_arch_from_state_dict(sd))
+    missing, unexpected = model.load_state_dict(
+        {k: v.float() for k, v in sd.items()}, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise RuntimeError(f"{path}: missing keys {missing[:5]}, unexpected "
+                           f"keys {unexpected[:5]}")
+    return model
+
+
+def build_clip_variables(backbone: str, gen: torch.Generator
+                         ) -> Tuple[CLIPModel, bool]:
+    """The full CLIP model (visual + text) on the CPU: pretrained when a
+    local checkpoint exists, else a seeded random init. Returns
+    ``(model, pretrained)``."""
+    ckpt = find_clip_checkpoint(backbone)
+    if ckpt is not None:
+        verify = os.environ.get("CLIPSPM_SKIP_WEIGHT_VERIFY", "0") != "1"
+        return load_clip_checkpoint(ckpt, verify=verify), True
+    model = CLIPModel(CLIP_ARCHS[backbone])
+    return random_init_(model, gen), False
+
+
+def build_text_tables(cfg, clip_model: CLIPModel
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Template-ensemble text features for train/test class names, in fp32
+    (one padded-batch stream for both tables)."""
+    templates = (SINGLE_TEMPLATE if cfg.MODEL.NAME in SINGLE_PROMPT_HEADS
+                 else PROMPT_TEMPLATES)
+    return tuple(encode_class_text_tables(
+        clip_model, [list(cfg.TRAIN.CLASS_NAME), list(cfg.TEST.CLASS_NAME)],
+        templates))
+
+
+def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
+                              ) -> Tuple[object, EpisodeSampler]:
+    """Split catalog + seeded episodic sampler for one split. The eval seed
+    is ``MODEL.SEED + 1``, the JAX package's test stream."""
+    catalog = load_split(cfg.traintestlist, cfg.path, mode,
+                         cfg.DATA.DATASET, int(cfg.DATA.SEQ_LEN),
+                         int(cfg.DATA.get("SPLIT", 3)))
+    sampler = EpisodeSampler(
+        catalog, way=int(cfg.TRAIN.WAY), shot=int(cfg.TRAIN.SHOT),
+        queries=queries, seq_len=int(cfg.DATA.SEQ_LEN), train=train,
+        seed=int(cfg.MODEL.SEED) + (0 if train else 1))
+    return catalog, sampler
+
+
+def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
+                  device=None) -> Learner:
+    """Eval-only wiring: model + weights + text tables + transform, on
+    ``device`` (``cuda`` unless the caller asks for the CPU).
+
+    ``allow_random_weights`` (CLI ``--allow-random-weights`` or cfg
+    ``MODEL.ALLOW_RANDOM_WEIGHTS``) permits evaluating a CLIP head without
+    pretrained weights or the OpenAI BPE vocab; otherwise that raises
+    :class:`DegradedModeError`.
+    """
+    dev = resolve_device(device)
+    if int((cfg.get("DEVICE", {}) or {}).get("NUM_CHIPS", 1) or 1) > 1:
+        raise NotImplementedError(
+            "DEVICE.NUM_CHIPS > 1 is not ported yet (ROADMAP.md, open item "
+            "'DDP')")
+    use_amp = bool(cfg.get("USE_AMP", False))
+    set_matmul_precision(use_amp)
+    t0 = time.perf_counter()
+    build_seconds = {}
+
+    def mark(stage):
+        nonlocal t0
+        now = time.perf_counter()
+        build_seconds[stage] = now - t0
+        log_fn(f"build_learner: {stage} in {now - t0:.1f}s")
+        t0 = now
+
+    gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED))
+    model = random_init_(build_model(cfg), gen)
+    mark("model init")
+    allow_random_weights = (allow_random_weights
+                            or bool(cfg.MODEL.get("ALLOW_RANDOM_WEIGHTS",
+                                                  False)))
+    clip_model, pretrained = build_clip_variables(cfg.MODEL.BACKBONE, gen)
+    degraded = []
+    if not pretrained:
+        degraded.append("no local CLIP checkpoint (set CLIP_WEIGHTS_DIR or "
+                        "place weights in ~/.cache/clip) — backbone weights "
+                        "are RANDOM")
+    if not get_tokenizer().using_openai_vocab:
+        degraded.append("OpenAI BPE vocab asset missing (expected at "
+                        "clipspm_tpu/assets/bpe_simple_vocab_16e6.txt.gz or "
+                        "$CLIP_BPE_PATH) — text features use a SYNTHETIC "
+                        "vocabulary, not CLIP's")
+    if degraded:
+        msg = "; ".join(degraded)
+        if bool(cfg.TEST.ONLY_TEST) and not allow_random_weights:
+            raise DegradedModeError(
+                f"refusing to evaluate CLIP head {cfg.MODEL.NAME!r} in a "
+                f"degraded state: {msg}. Pass --allow-random-weights to "
+                "override.")
+        log_fn(f"WARNING: degraded CLIP setup — {msg}")
+    model.backbone.load_state_dict(clip_model.visual.state_dict())
+    mark("CLIP tower init")
+    clip_model.to(dev).eval()
+    text_train, text_test = build_text_tables(cfg, clip_model)
+    del clip_model
+    mark("text tables")
+    return Learner(cfg, model, text_train, text_test, dev,
+                   build_seconds=build_seconds)

@@ -1,0 +1,199 @@
+"""Where the port's weights come from.
+
+- ``random_init_``: a seeded random initialisation with the JAX package's
+  distributions (flax defaults plus CLIP's own embedding scales), drawn from
+  an explicit ``torch.Generator``.
+- The JAX package's variables, as numpy trees of ``{params, batch_stats}``,
+  turned into the port's ``state_dict``. CLIP keys are OpenAI's: this is the
+  inverse of ``clipspm_tpu/models/backbones/torch_import.py:
+  convert_clip_state_dict``. A flax conv kernel ``[kh, kw, in, out]``
+  becomes ``[out, in, kh, kw]``, a Dense kernel ``[in, out]`` becomes
+  ``[out, in]``, BatchNorm ``scale/bias/mean/var`` become
+  ``weight/bias/running_mean/running_var``, and ``resblock_i`` becomes
+  ``resblocks.i``. The clipspm head's Conv1D kernel ``[3, in, out]`` becomes
+  ``[out, in, 3]``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.backbones.clip import AttentionPool2d, CLIPModel, _Attention
+
+StateDict = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# random initialisation
+# ---------------------------------------------------------------------------
+
+def _normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+
+@torch.no_grad()
+def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Initialise ``model`` (on the CPU) in place from ``gen``: Linear/Conv
+    weights ``N(0, 1/fan_in)`` and zero biases (flax's lecun-normal
+    default), norms at identity with running stats (0, 1), embeddings and
+    CLIP's extra parameters at the JAX package's scales, scalar gains at 1.
+    """
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            fan_in = mod.weight[0].numel()
+            _normal_(mod.weight, fan_in ** -0.5, gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+            mod.reset_parameters()
+        elif isinstance(mod, nn.Embedding):
+            _normal_(mod.weight, mod.weight.shape[1] ** -0.5, gen)
+        elif isinstance(mod, _Attention):
+            _normal_(mod.in_proj_weight, mod.in_proj_weight.shape[1] ** -0.5,
+                     gen)
+            mod.in_proj_bias.zero_()
+        elif isinstance(mod, AttentionPool2d):
+            pe = mod.positional_embedding
+            _normal_(pe, pe.shape[1] ** -0.5, gen)
+        if isinstance(mod, CLIPModel):
+            _normal_(mod.positional_embedding, 0.01, gen)
+            _normal_(mod.text_projection,
+                     mod.arch.transformer_width ** -0.5, gen)
+            mod.logit_scale.fill_(math.log(1 / 0.07))
+    for name, p in model.named_parameters():
+        if p.dim() == 0 and name.rsplit(".", 1)[-1] in ("mo_alpha1", "scale"):
+            p.fill_(1.0)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# JAX variables -> port state dict
+# ---------------------------------------------------------------------------
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _dense(p: Mapping[str, Any], out: StateDict, key: str) -> None:
+    out[f"{key}.weight"] = _t(p["kernel"]).T.contiguous()
+    if "bias" in p:
+        out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv2d(p: Mapping[str, Any], out: StateDict, key: str) -> None:
+    out[f"{key}.weight"] = _t(p["kernel"]).permute(3, 2, 0, 1).contiguous()
+
+
+def _norm(p: Mapping[str, Any], out: StateDict, key: str) -> None:
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _bn(p, stats, out: StateDict, key: str) -> None:
+    _norm(p, out, key)
+    out[f"{key}.running_mean"] = _t(stats["mean"])
+    out[f"{key}.running_var"] = _t(stats["var"])
+    out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def resnet_visual_state_dict(params: Mapping[str, Any],
+                             stats: Mapping[str, Any],
+                             prefix: str = "") -> StateDict:
+    """A JAX ``ModifiedResNet`` tree -> OpenAI ``visual.*`` keys (without
+    the ``visual.`` part; ``prefix`` is prepended)."""
+    if "attnpool" not in params:
+        raise NotImplementedError("only the ModifiedResNet visual tower is "
+                                  "ported (ViT waits, ROADMAP.md)")
+    out: StateDict = {}
+    for i in (1, 2, 3):
+        _conv2d(params[f"conv{i}"], out, f"{prefix}conv{i}")
+        _bn(params[f"bn{i}"], stats[f"bn{i}"], out, f"{prefix}bn{i}")
+    blocks = sorted((k for k in params if k.startswith("layer")),
+                    key=lambda k: tuple(int(n) for n in k[5:].split("_")))
+    for blk in blocks:
+        stage, b = blk[5:].split("_")
+        key = f"{prefix}layer{stage}.{b}"
+        bp, bs = params[blk], stats[blk]
+        for i in (1, 2, 3):
+            _conv2d(bp[f"conv{i}"], out, f"{key}.conv{i}")
+            _bn(bp[f"bn{i}"], bs[f"bn{i}"], out, f"{key}.bn{i}")
+        if "down_conv" in bp:
+            _conv2d(bp["down_conv"], out, f"{key}.downsample.0")
+            _bn(bp["down_bn"], bs["down_bn"], out, f"{key}.downsample.1")
+    pool = params["attnpool"]
+    out[f"{prefix}attnpool.positional_embedding"] = _t(
+        pool["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _dense(pool[proj], out, f"{prefix}attnpool.{proj}")
+    return out
+
+
+def _resblock(p: Mapping[str, Any], out: StateDict, key: str) -> None:
+    _norm(p["ln_1"]["ln"], out, f"{key}.ln_1")
+    _norm(p["ln_2"]["ln"], out, f"{key}.ln_2")
+    out[f"{key}.attn.in_proj_weight"] = _t(p["in_proj"]["kernel"]).T.contiguous()
+    out[f"{key}.attn.in_proj_bias"] = _t(p["in_proj"]["bias"])
+    _dense(p["out_proj"], out, f"{key}.attn.out_proj")
+    _dense(p["c_fc"], out, f"{key}.mlp.c_fc")
+    _dense(p["c_proj"], out, f"{key}.mlp.c_proj")
+
+
+def clip_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``CLIPModel`` variables -> an OpenAI-keyed state dict for
+    ``models.backbones.clip.CLIPModel``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = resnet_visual_state_dict(params["visual"], stats.get("visual", {}),
+                                   prefix="visual.")
+    tr = params["transformer"]
+    for i in range(len(tr)):
+        _resblock(tr[f"resblock_{i}"], out, f"transformer.resblocks.{i}")
+    out["token_embedding.weight"] = _t(params["token_embedding"]["embedding"])
+    out["positional_embedding"] = _t(params["positional_embedding"])
+    _norm(params["ln_final"]["ln"], out, "ln_final")
+    out["text_projection"] = _t(params["text_projection"])
+    out["logit_scale"] = _t(params["logit_scale"])
+    return out
+
+
+def head_state_dict(params: Mapping[str, Any], prefix: str = "") -> StateDict:
+    """A JAX ``CLIPSPM`` head tree -> the port's head keys. Names map one to
+    one (path joined by dots); Dense and Conv1D kernels are transposed and
+    LayerNorm ``scale`` becomes ``weight``."""
+    out: StateDict = {}
+
+    def walk(node: Mapping[str, Any], path: str) -> None:
+        for name, v in node.items():
+            key = f"{path}{name}"
+            if not isinstance(v, Mapping):
+                out[key] = _t(v)
+            elif "kernel" in v:
+                k = _t(v["kernel"])
+                out[f"{key}.weight"] = (k.permute(2, 1, 0) if k.dim() == 3
+                                        else k.T).contiguous()
+                if "bias" in v:
+                    out[f"{key}.bias"] = _t(v["bias"])
+            elif "scale" in v:
+                _norm(v, out, key)
+            else:
+                walk(v, f"{key}.")
+
+    walk(params, prefix)
+    return out
+
+
+def model_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``CLIPSPMModel`` variables -> ``models.fsar.CLIPSPMModel`` state
+    dict (``backbone.*`` + ``head.*``)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = resnet_visual_state_dict(params["backbone"],
+                                   stats.get("backbone", {}),
+                                   prefix="backbone.")
+    out.update(head_state_dict(params["head"], prefix="head."))
+    return out
