@@ -11,11 +11,17 @@ Phases, in order; any failure ends the run with a nonzero exit:
 2. build: compiles every CUDA source of the port (one ``nvcc`` per source,
    all started together) and prints the build seconds;
 3. kernels against their plain PyTorch versions on the card, forward and
-   gradient, at the main path's shapes, with CUDA-event timings;
-4. the main path at full width: the port's CLI runs CLIP-SPM RN50 (224 crop,
-   T=8, 5-way 5-shot, bf16) feature-cached evaluation over a synthetic
-   HMDB-layout split on random weights, with every kernel launch counter set
-   to 0 just before and read just after.
+   gradient, at the main paths' shapes, with CUDA-event timings: K1 (OTAM
+   DP) and K2 (soft-DTW DP);
+4. the main paths at full width, each through the port's CLI on random
+   weights over a synthetic split, with every kernel launch counter set to
+   0 just before the path and read just after:
+   - clipspm: CLIP-SPM RN50 (224 crop, T=8, 5-way 5-shot, bf16)
+     feature-cached evaluation over an HMDB-layout split (K1, 6 launches
+     per episode);
+   - ta2n: TA2N on a torchvision ResNet-50 (224 crop, T=8, 5-way 1-shot,
+     bf16) with ``MODEL.METRIC=otam``, feature-cached evaluation over a
+     UCF-layout split (K2, 2 launches per episode).
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -36,10 +42,10 @@ import time
 import torch
 
 # every CUDA source under clipspm_tpu_torch/csrc/
-SOURCES = ("otam_dp",)
+SOURCES = ("otam_dp", "softdtw_dp")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# non-tensor-core FLOP/s; the OTAM DP's exp/log/div arithmetic is fp32 SIMT.
+# non-tensor-core FLOP/s; the DPs' exp/log/div arithmetic is fp32 SIMT.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 
@@ -49,9 +55,15 @@ OTAM_LAMBDAS = (0.5, 0.1)
 # multiple of the 128-thread block
 OTAM_BATCHES = (25, 5, 1600)
 OTAM_T = 8
-NOT_PORTED_K2 = {"name": "_sdtw_kernel (K2)", "status": "not ported (off path)",
-                 "replaces": "clipspm_tpu/ops/softdtw_pallas.py:40"}
 TOL = 2e-5   # fp32, both sides round the same soft-min differently
+GRAD_TOL = 2e-4
+
+# K2 on the TA2N head: way*Q = 25 padded tables [T+2, T] per launch; 5 and
+# 1600 as for K1; gamma 0.1 is the head's, 1.0 the function's default
+SDTW_BATCHES = (25, 5, 1600)
+SDTW_N, SDTW_M = 10, 8
+SDTW_GAMMAS = (0.1, 1.0)
+SDTW_BANDS = (0.0, 2.0)
 
 
 def log(msg: str) -> None:
@@ -166,20 +178,124 @@ def phase_kernels() -> dict:
             "shape": [25, OTAM_T, OTAM_T], "lambda": 0.5}
 
 
-# the main path: hmdb's shipped config at full width (RN50, 224 crop, T=8,
-# 5-way 5-shot 1-query, bf16) on random weights, a few hundred episodes over
-# a synthetic split of HMDB's layout (10 test classes x 12 videos x 10
-# frames of 256x256)
-MAIN_CFG = "configs/clipspm/hmdb.yaml"
+def _sdtw_bound_ms(B: int, N: int, M: int, bandwidth: float) -> tuple:
+    """Least time of one K2 launch: tables read once, results written once;
+    per cell the DP computes (those in the band when ``bandwidth > 0``)
+    about 20 fp32 operations (3-way soft-min: two mins, and per argument a
+    subtract, divide, clamp and exp; two adds, log, scale, shift; plus the
+    table value)."""
+    cells = sum(1 for i in range(1, N + 1) for j in range(1, M + 1)
+                if bandwidth <= 0 or abs(i - j) <= bandwidth)
+    bytes_ = 4 * B * N * M + 4 * B
+    ops = B * cells * 20
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_k2() -> dict:
+    from clipspm_tpu_torch.ops import softdtw_cuda
+    from clipspm_tpu_torch.ops.softdtw import softdtw_from_dists as plain
+    from clipspm_tpu_torch.tools.k1_variants import graph_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    worst_abs, worst_grad = 0.0, 0.0
+    timings = {}
+    for B in SDTW_BATCHES:
+        for gamma in SDTW_GAMMAS:
+            for bw in SDTW_BANDS:
+                tables = (torch.rand(B, SDTW_N, SDTW_M, generator=gen)
+                          * 2.0).to(dev)
+                got = softdtw_cuda.softdtw_dp_cuda(tables, gamma, bw)
+                want = plain(tables, gamma, bw)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+                    raise AssertionError(
+                        f"K2 forward disagrees at B={B} gamma={gamma} "
+                        f"bandwidth={bw}: max abs {err:.3e}")
+                t1 = tables.clone().requires_grad_(True)
+                t2 = tables.clone().requires_grad_(True)
+                w = torch.rand(B, generator=gen).to(dev)
+                (softdtw_cuda.softdtw_from_dists(t1, gamma, bw)
+                 * w).sum().backward()
+                (plain(t2, gamma, bw) * w).sum().backward()
+                gerr = (t1.grad - t2.grad).abs().max().item()
+                if not torch.allclose(t1.grad, t2.grad, rtol=GRAD_TOL,
+                                      atol=GRAD_TOL):
+                    raise AssertionError(
+                        f"K2 gradient disagrees at B={B} gamma={gamma} "
+                        f"bandwidth={bw}: max abs {gerr:.3e}")
+                worst_abs = max(worst_abs, err)
+                worst_grad = max(worst_grad, gerr)
+                k_ms = _time_ms(
+                    lambda: softdtw_cuda.softdtw_dp_cuda(tables, gamma, bw))
+                k_dev = graph_ms(
+                    lambda: softdtw_cuda.softdtw_dp_cuda(tables, gamma, bw))
+                p_ms = _time_ms(lambda: plain(tables, gamma, bw), iters=20)
+                p_dev = graph_ms(lambda: plain(tables, gamma, bw), iters=20)
+                bound_ms, bound_by = _sdtw_bound_ms(B, SDTW_N, SDTW_M, bw)
+                timings[(B, gamma, bw)] = (k_ms, k_dev, p_ms, p_dev,
+                                           bound_ms, bound_by)
+                log(f"K2 softdtw_dp B={B} gamma={gamma} bandwidth={bw}: max "
+                    f"abs err {err:.3e}, grad max abs err {gerr:.3e}; "
+                    f"kernel_ms {k_ms:.5f} (device {k_dev:.5f}), plain_ms "
+                    f"{p_ms:.4f} (device {p_dev:.4f}), bound_ms "
+                    f"{bound_ms:.3e} ({bound_by})")
+    # a band narrower than |N - M| prunes the corner: exactly the sentinel
+    corner = softdtw_cuda.softdtw_dp_cuda(
+        (torch.rand(3, SDTW_N, 4, generator=gen) * 2.0).to(dev), 0.1, 2.0)
+    if not bool((corner == 1e30).all()):
+        raise AssertionError(f"K2 pruned corner is not the sentinel: "
+                             f"{corner.tolist()}")
+    log("K2 library_ms: none -- no single PyTorch call computes the soft-DTW "
+        "DP")
+    k_ms, k_dev, p_ms, p_dev, bound_ms, bound_by = timings[(25, 0.1, 0.0)]
+    return {"name": "softdtw_dp (K2)", "status": "ported", "route": "cuda",
+            "source": "clipspm_tpu_torch/csrc/softdtw_dp.cu",
+            "replaces": "clipspm_tpu/ops/softdtw_pallas.py:40",
+            "max_abs_err": worst_abs, "max_abs_grad_err": worst_grad,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "device_ms": k_dev,
+            "plain_device_ms": p_dev, "shape": [25, SDTW_N, SDTW_M],
+            "gamma": 0.1, "bandwidth": 0.0}
+
+
+# The main paths, each a shipped config at full width on random weights, a
+# few hundred episodes over a synthetic split in its dataset's layout
+# (frames of 256x256, 10 per video):
+# - clipspm: hmdb.yaml (RN50 CLIP tower, 224 crop, T=8, 5-way 5-shot
+#   1-query, bf16), 10 test classes x 12 videos; three bidirectional OTAM
+#   distances per episode (6 K1 launches);
+# - ta2n: ucf.yaml with MODEL.METRIC=otam (ResNet-50 trunk, 224 crop, T=8,
+#   5-way 1-shot 1-query, bf16), 21 test classes x 6 videos; one
+#   forward/reverse soft-DTW per episode (2 K2 launches). The table does not
+#   depend on METRIC, so the card-vs-CPU head check runs both metrics.
+PATHS = {
+    "clipspm": dict(cfg="configs/clipspm/hmdb.yaml", opts=(),
+                    frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
+                    classes=10, videos=12, launches={"K1": 6, "K2": 0},
+                    metrics=(None,)),
+    "ta2n": dict(cfg="configs/ta2n/ucf.yaml", opts=("MODEL.METRIC=otam",),
+                 frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
+                 classes=21, videos=6, launches={"K1": 0, "K2": 2},
+                 metrics=("otam", "cos")),
+}
 MAIN_EPISODES = 300
-SPLIT_CLASSES, SPLIT_VIDEOS, SPLIT_FRAMES, SPLIT_PX = 10, 12, 10, 256
+SPLIT_FRAMES, SPLIT_PX = 10, 256
 SEQ_LEN = 8
-OTAM_PER_EPISODE = 6   # three bidirectional OTAM distances
+# the head on the card (fp32, no TF32) against the head on the CPU (fp32):
+# sums in another order, so 1e-4 relative and absolute on the logits
+HEAD_TOL = 1e-4
+KERNEL_NAMES = {"K1": "otam_dp_kernel", "K2": "softdtw_dp_kernel"}
 
 
-def write_split(root: str, classes: int, videos: int, frames: int,
-                px: int) -> None:
-    """A synthetic split in HMDB's on-disk layout (test side only)."""
+def write_split(root: str, frame_dir: str, split_dir: str, classes: int,
+                videos: int, frames: int, px: int) -> None:
+    """A synthetic split in a dataset's on-disk layout (test side only):
+    ``<frame_dir>/test/<class>/<vid>/NNNNN.jpg`` and
+    ``splits/<split_dir>/testlist03.txt``."""
     import numpy as np
     from PIL import Image
 
@@ -188,14 +304,14 @@ def write_split(root: str, classes: int, videos: int, frames: int,
     for c in range(classes):
         for v in range(videos):
             rel = f"class{c:02d}/v{v:03d}"
-            vdir = os.path.join(root, "hmdb_256x256q5_l8", "test", rel)
+            vdir = os.path.join(root, frame_dir, "test", rel)
             os.makedirs(vdir)
             color = tuple(int(x) for x in rng.integers(0, 256, 3))
             img = Image.new("RGB", (px, px), color)
             for f in range(frames):
                 img.save(os.path.join(vdir, f"{f + 1:05d}.jpg"), quality=90)
             lines.append(rel)
-    sdir = os.path.join(root, "splits", "hmdb_ARN")
+    sdir = os.path.join(root, "splits", split_dir)
     os.makedirs(sdir)
     with open(os.path.join(sdir, "testlist03.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
@@ -279,10 +395,12 @@ def _first_episodes(rec: _Recorder, argv, n: int) -> list:
     return out
 
 
-def check_head_against_cpu(rec: _Recorder, argv) -> float:
-    """The head on the card (fp32, kernel K1) against the head on the CPU
-    (fp32, plain wavefront) over the first episodes of the same stream and
-    the same table rows; returns the max abs logit difference."""
+def check_head_against_cpu(rec: _Recorder, argv, metrics) -> dict:
+    """The head on the card (fp32, its kernels) against the head on the CPU
+    (fp32, the plain versions) over the first episodes of the same stream
+    and the same table rows, once per ``MODEL.METRIC`` value in ``metrics``
+    (None: the model has one); returns the max abs logit difference of
+    each."""
     import copy
 
     learner = rec.learner
@@ -290,30 +408,40 @@ def check_head_against_cpu(rec: _Recorder, argv) -> float:
     cpu_model = copy.deepcopy(gpu_model).cpu().float()
     dtype, gpu_model.compute_dtype = gpu_model.compute_dtype, None
     cpu_model.compute_dtype = None
+    metric0 = getattr(gpu_model, "metric", None)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst = 0.0
+    worst = {}
     try:
         with torch.no_grad():
-            for ep in _first_episodes(rec, argv, 2):
-                outs = []
-                for model, dev in ((gpu_model, learner.device),
-                                   (cpu_model, torch.device("cpu"))):
-                    su, qu, *labels = [x.to(dev) for x in ep]
-                    outs.append(model.match_features(
-                        su.float(), qu.float(), *labels[:3],
-                        learner.text_train.to(dev),
-                        learner.text_test.to(dev))["logits"].cpu())
-                worst = max(worst, (outs[0] - outs[1]).abs().max().item())
-                if not torch.allclose(outs[0], outs[1], rtol=1e-4,
-                                      atol=1e-4):
-                    raise AssertionError(
-                        f"head on the card vs the CPU: max abs logit diff "
-                        f"{worst:.3e}")
+            episodes = _first_episodes(rec, argv, 2)
+            for metric in metrics:
+                if metric is not None:
+                    gpu_model.metric = cpu_model.metric = metric
+                key = metric or "logits"
+                worst[key] = 0.0
+                for ep in episodes:
+                    outs = []
+                    for model, dev in ((gpu_model, learner.device),
+                                       (cpu_model, torch.device("cpu"))):
+                        su, qu, *labels = [x.to(dev) for x in ep]
+                        outs.append(model.match_features(
+                            su.float(), qu.float(), *labels[:3],
+                            learner.text_train.to(dev),
+                            learner.text_test.to(dev))["logits"].cpu())
+                    worst[key] = max(worst[key],
+                                     (outs[0] - outs[1]).abs().max().item())
+                    if not torch.allclose(outs[0], outs[1], rtol=HEAD_TOL,
+                                          atol=HEAD_TOL):
+                        raise AssertionError(
+                            f"head on the card vs the CPU ({key}): max abs "
+                            f"logit diff {worst[key]:.3e}")
     finally:
         gpu_model.compute_dtype = dtype
+        if metric0 is not None:
+            gpu_model.metric = metric0
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
     return worst
@@ -356,79 +484,96 @@ def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    k1_us = sum(t for n, t in by_name.items() if "otam_dp_kernel" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"episodes": episodes,
-            "wall_ms_per_episode": wall_us / episodes / 1e3,
-            "device_busy_ms_per_episode": busy_us / episodes / 1e3,
-            "device_idle_share": 1.0 - busy_us / wall_us,
-            "device_ops_per_episode": len(dev) / episodes,
-            "k1_device_ms_per_episode": k1_us / episodes / 1e3,
-            "k1_share_of_device_busy": k1_us / busy_us if busy_us else None,
-            "top_device_ms_per_episode": [
-                [n[:60], t / episodes / 1e3] for n, t in top]}
+    out = {"episodes": episodes,
+           "wall_ms_per_episode": wall_us / episodes / 1e3,
+           "device_busy_ms_per_episode": busy_us / episodes / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "device_ops_per_episode": len(dev) / episodes}
+    for k, kname in KERNEL_NAMES.items():
+        k_us = sum(t for n, t in by_name.items() if kname in n)
+        out[f"{k.lower()}_device_ms_per_episode"] = k_us / episodes / 1e3
+        out[f"{k.lower()}_share_of_device_busy"] = (k_us / busy_us
+                                                    if busy_us else None)
+    out["top_device_ms_per_episode"] = [[n[:60], t / episodes / 1e3]
+                                        for n, t in top]
+    return out
 
 
-def phase_main_path(device: str = "cuda", extra_opts=(),
+def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
                     episodes: int = MAIN_EPISODES) -> dict:
-    from clipspm_tpu_torch.cli.run import main as cli_main
-    from clipspm_tpu_torch.ops import otam_cuda
+    import gc
 
-    log("main path: frames come from a seeded uint8 source right after the "
-        "decode stage, in place of the JPEG decode; the disk decode "
+    from clipspm_tpu_torch.cli.run import main as cli_main
+    from clipspm_tpu_torch.ops import otam_cuda, softdtw_cuda
+
+    spec = PATHS[name]
+    log(f"main path {name}: frames come from a seeded uint8 source right "
+        "after the decode stage, in place of the JPEG decode; the disk decode "
         "(native/frame_decoder.cc, which needs libjpeg, or PIL) is held "
         "against the JAX package by the CPU tests")
     on_gpu = torch.device(device).type == "cuda"
+    counters = {"K1": otam_cuda, "K2": softdtw_cuda}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        write_split(root, SPLIT_CLASSES, SPLIT_VIDEOS, SPLIT_FRAMES, SPLIT_PX)
-        log(f"main path: wrote {SPLIT_CLASSES * SPLIT_VIDEOS} videos in "
-            f"{time.perf_counter() - t0:.1f} s")
-        argv = ["--cfg", MAIN_CFG, "--splits-root", root,
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
+        log(f"main path {name}: wrote {spec['classes'] * spec['videos']} "
+            f"videos in {time.perf_counter() - t0:.1f} s")
+        argv = ["--cfg", spec["cfg"], "--splits-root", root,
                 "--allow-random-weights", "--device", device,
                 "TEST.ONLY_TEST=true", f"TEST.TEST_EPISODES={episodes}",
                 f"DATA.DATA_DIR={root}",
                 f"CHECKPOINT.CHECKPOINT_DIR={os.path.join(root, 'ckpt')}",
-                *extra_opts]
+                *spec["opts"], *extra_opts]
         rec = _Recorder()
         if on_gpu:
+            gc.collect()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         with rec.installed():
-            otam_cuda.launches = 0
+            for mod in counters.values():
+                mod.launches = 0
             t0 = time.perf_counter()
             res = cli_main(argv)
             wall = time.perf_counter() - t0
-            launches = otam_cuda.launches
+            launches = {k: mod.launches for k, mod in counters.items()}
         peak = torch.cuda.max_memory_allocated() if on_gpu else 0
-        head_err = check_head_against_cpu(rec, argv)
+        head_err = check_head_against_cpu(rec, argv, spec["metrics"])
         head_profile = profile_head(rec, argv) if on_gpu else None
 
     V = res["unique_videos"]
-    expect_launches = OTAM_PER_EPISODE * episodes if on_gpu else 0
-    if launches != expect_launches:
-        raise AssertionError(f"K1 launched {launches} times on the main "
-                             f"path; expected {expect_launches}")
+    for k, per_episode in spec["launches"].items():
+        expect = per_episode * episodes if on_gpu else 0
+        if launches[k] != expect:
+            raise AssertionError(f"{k} launched {launches[k]} times on the "
+                                 f"{name} path; expected {expect}")
     for key in ("accuracy", "confidence", "loss"):
         if not math.isfinite(res[key]):
-            raise AssertionError(f"main path {key} is not finite: {res}")
-    dim = rec.learner.model.arch.embed_dim
-    if tuple(rec.table.shape) != (V, SEQ_LEN, dim) or not bool(
+            raise AssertionError(f"{name} path {key} is not finite: {res}")
+    model = rec.learner.model
+    tail = ((7, 7, model.dim) if name == "ta2n"
+            else (model.arch.embed_dim,))
+    want_shape = (V, SEQ_LEN) + tail
+    if tuple(rec.table.shape) != want_shape or not bool(
             torch.isfinite(rec.table).all()):
         raise AssertionError(f"feature table {tuple(rec.table.shape)} is not "
-                             f"a finite [{V}, {SEQ_LEN}, {dim}]")
-    out = {"episodes": episodes, "unique_videos": V,
+                             f"a finite {list(want_shape)}")
+    out = {"path": name, "episodes": episodes, "unique_videos": V,
            "table_shape": list(rec.table.shape),
+           "table_dtype": str(rec.table.dtype),
            "accuracy": res["accuracy"], "confidence": res["confidence"],
-           "loss": res["loss"], "otam_launches": launches,
+           "loss": res["loss"], "launches": launches,
            "encode_frames_per_s": V * SEQ_LEN / res["encode_seconds"],
            "head_episodes_per_s": episodes / res["head_seconds"],
            "encode_seconds": res["encode_seconds"],
            "head_seconds": res["head_seconds"], "cli_seconds": wall,
            "build_seconds": rec.learner.build_seconds,
            "peak_memory_bytes": peak,
-           "head_vs_cpu_max_abs_logit_diff": head_err}
+           "head_vs_cpu_max_abs_logit_diff": head_err,
+           "head_vs_cpu_tol": HEAD_TOL}
     log(json.dumps({"main_path": out}))
-    log(json.dumps({"head_profile": head_profile}))
+    log(json.dumps({"head_profile": {"path": name, **(head_profile or {})}}))
     return out
 
 
@@ -436,9 +581,12 @@ def main() -> int:
     device = phase_device()
     phase_build()
     k1 = phase_kernels()
-    main_path = phase_main_path()
-    k1["launches"] = main_path["otam_launches"]
-    log(json.dumps({"kernels": [k1], "not_ported": [NOT_PORTED_K2]}))
+    k2 = phase_k2()
+    clipspm = phase_main_path("clipspm")
+    ta2n = phase_main_path("ta2n")
+    k1["launches"] = clipspm["launches"]["K1"]
+    k2["launches"] = ta2n["launches"]["K2"]
+    log(json.dumps({"kernels": [k1, k2]}))
     log(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -3,20 +3,23 @@
 Port of ``clipspm_tpu/models/fsar.py``. The backbone encodes the support and
 query frames; the head consumes per-frame features; text tables are inputs
 gathered per episode. Under ``USE_AMP`` the forward runs under bf16 autocast
-(convolutions and matmuls in bf16; norms in fp32; the OTAM DP in fp32).
+(convolutions and matmuls in bf16; norms in fp32; the OTAM and soft-DTW DPs
+in fp32). ``build_model`` builds ``clipspm`` (``CLIPSPMModel`` below) and
+``ta2n`` (``heads/ta2n.py:TA2NModel``).
 """
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
 from .backbones.clip import CLIP_ARCHS, CLIPArch
+from .backbones.resnet import RESNET_LAYERS
 from .heads.clipspm import CLIPSPM
-from .visual import encode_chunked, make_clip_visual
+from .heads.ta2n import TA2NModel
+from .visual import compute_autocast, encode_chunked, make_clip_visual
 
 
 class CLIPSPMModel(nn.Module):
@@ -45,11 +48,6 @@ class CLIPSPMModel(nn.Module):
         self.head = CLIPSPM(dim=arch.embed_dim, way=way, shot=shot, spm=spm,
                             single_direct=single_direct)
 
-    def _compute(self, device: torch.device):
-        if self.compute_dtype is None:
-            return nullcontext()
-        return torch.autocast(device.type, dtype=self.compute_dtype)
-
     def forward(self, support_images, target_images, support_labels,
                 real_support_labels, real_target_labels, text_train,
                 text_test) -> Dict[str, torch.Tensor]:
@@ -68,7 +66,7 @@ class CLIPSPMModel(nn.Module):
         """``[N, T, H, W, 3]`` frames -> ``[N, T, D]`` per-frame features."""
         N, T = images.shape[:2]
         flat = images.reshape((N * T,) + tuple(images.shape[2:]))
-        with self._compute(images.device):
+        with compute_autocast(images.device, self.compute_dtype):
             feats = encode_chunked(self.backbone, flat, self.encode_chunk)
         return feats.reshape(N, T, feats.shape[-1])
 
@@ -79,38 +77,51 @@ class CLIPSPMModel(nn.Module):
         table = text_train if self.training else text_test
         context_support = table[real_support_labels.long()][:, None, :]
         target_context = table[real_target_labels.long()][:, None, :]
-        with self._compute(su.device):
+        with compute_autocast(su.device, self.compute_dtype):
             return self.head(su, qu, support_labels, context_support,
                              target_context)
 
 
 def build_model(cfg) -> nn.Module:
-    """Construct the model named by ``cfg.MODEL.NAME``. Only ``clipspm`` is
-    ported; ``MODEL.OTAM_BACKEND`` is not read (on a GPU the OTAM DP is
-    always kernel K1)."""
+    """Construct the model named by ``cfg.MODEL.NAME``: ``clipspm`` or
+    ``ta2n``; the other heads raise ``NotImplementedError``.
+    ``MODEL.OTAM_BACKEND`` is not read (on a GPU the OTAM DP is always
+    kernel K1, the soft-DTW DP kernel K2)."""
     name = cfg.MODEL.NAME
-    if name != "clipspm":
+    if name not in ("clipspm", "ta2n"):
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md, open items "
-            "'the other heads' and 'the ResNet family'); the port builds "
-            "'clipspm'")
+            "'the other CLIP heads' and 'the remaining ResNet heads'); the "
+            "port builds 'clipspm' and 'ta2n'")
     for knob in ("FAST_SOFTMAX", "BF16_NORMS", "INT8_EVAL"):
         if cfg.MODEL.get(knob, False):
             raise NotImplementedError(
                 f"MODEL.{knob} is a JAX-package numerics option the port "
                 "does not carry")
     backbone = cfg.MODEL.BACKBONE
-    if backbone not in CLIP_ARCHS:
-        raise ValueError(f"unknown CLIP backbone {backbone!r}")
     chunk_cfg = cfg.MODEL.get("ENCODE_CHUNK", None)
     if chunk_cfg is True:
         chunk = 30
     else:
         chunk = int(chunk_cfg or 0)
+    compute_dtype = (torch.bfloat16 if cfg.get("USE_AMP", False) else None)
+    way, shot = int(cfg.TRAIN.WAY), int(cfg.TRAIN.SHOT)
+    if name == "ta2n":
+        # test-size resnet trunks use a narrow width
+        rn_width = 8 if backbone == "test-tiny-resnet" else 64
+        rn_arch = "resnet18" if backbone == "test-tiny-resnet" else backbone
+        if rn_arch not in RESNET_LAYERS:
+            raise ValueError(f"unknown ResNet backbone {backbone!r}")
+        m = cfg.MODEL
+        return TA2NModel(
+            way=way, shot=shot, seq_len=int(cfg.DATA.SEQ_LEN), arch=rn_arch,
+            backbone_width=rn_width, encode_chunk=chunk,
+            dropout=float(m.get("DROPOUT", 0.5)),
+            dist_norm=bool(m.get("DIST_NORM", False)),
+            metric=str(m.get("METRIC", "cos")), compute_dtype=compute_dtype)
+    if backbone not in CLIP_ARCHS:
+        raise ValueError(f"unknown CLIP backbone {backbone!r}")
     return CLIPSPMModel(
-        arch=CLIP_ARCHS[backbone], way=int(cfg.TRAIN.WAY),
-        shot=int(cfg.TRAIN.SHOT), spm=dict(cfg.params),
+        arch=CLIP_ARCHS[backbone], way=way, shot=shot, spm=dict(cfg.params),
         single_direct=bool(cfg.MODEL.get("SINGLE_DIRECT", False)),
-        encode_chunk=chunk,
-        compute_dtype=(torch.bfloat16 if cfg.get("USE_AMP", False)
-                       else None))
+        encode_chunk=chunk, compute_dtype=compute_dtype)

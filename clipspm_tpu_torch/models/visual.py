@@ -2,10 +2,22 @@
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+from typing import Optional
+
 import torch
 from torch import nn
 
 from .backbones.clip import make_clip_visual  # noqa: F401 (re-export)
+
+
+def compute_autocast(device: torch.device,
+                     compute_dtype: Optional[torch.dtype]):
+    """The model's compute context: autocast to ``compute_dtype`` on
+    ``device``, or nothing when it is None (fp32)."""
+    if compute_dtype is None:
+        return nullcontext()
+    return torch.autocast(device.type, dtype=compute_dtype)
 
 
 def encode_chunked(backbone: nn.Module, frames: torch.Tensor,
@@ -18,4 +30,3 @@ def encode_chunked(backbone: nn.Module, frames: torch.Tensor,
         return backbone(frames)
     return torch.cat([backbone(frames[i:i + chunk])
                       for i in range(0, N, chunk)], dim=0)
-

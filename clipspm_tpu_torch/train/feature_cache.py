@@ -7,7 +7,9 @@ contributes identical features to every episode that samples it. So:
 
 1. every episode's index plan is drawn up front (host numpy);
 2. each unique sampled video is encoded once into a device-resident table
-   ``[V, T, D]``; the decode of batch i+1 overlaps the encode of batch i;
+   ``[V, T, ...]`` (frame vectors ``[V, T, D]`` for clipspm, post-TTM maps
+   ``[V, T, h, w, D]`` for ta2n); the decode of batch i+1 overlaps the
+   encode of batch i;
 3. the head runs one episode at a time over table gathers, with the
    episodes' index and label arrays moved to the device once.
 
@@ -146,7 +148,7 @@ class FeatureCachedEvaluator:
     def build_table(self, plans: Sequence[EpisodePlan]) -> tuple:
         """Encode every unique video the plans sample.
 
-        Returns ``(table [V, T, D] device tensor, row_of: vid -> row)``.
+        Returns ``(table [V, T, ...] device tensor, row_of: vid -> row)``.
         """
         frame_plans = _frame_plans(plans)
         vids = np.asarray(sorted(frame_plans), dtype=np.int64)

@@ -1,6 +1,7 @@
 """Episodic losses and metrics + per-model loss dispatch.
 
-Port of ``clipspm_tpu/train/losses.py`` for the ported heads:
+Port of ``clipspm_tpu/train/losses.py`` for the ported heads (clipspm, and
+ta2n through the default branch):
 ``episodic_ce`` is a logsumexp over the sample dim (size 1 in practice)
 followed by a **sum** over queries; ``aggregate_accuracy`` is the argmax of
 that logsumexp.
@@ -46,7 +47,8 @@ def loss_and_acc(model_name: str, outputs: Dict[str, torch.Tensor],
     if model_name in PENDING_BRANCHES:
         raise NotImplementedError(
             f"the {model_name!r} loss branch is not ported yet (ROADMAP.md, "
-            "open item 'the other heads')")
+            "open items 'the other CLIP heads' and 'the remaining ResNet "
+            "heads')")
     loss = episodic_ce(logits, target_labels) / tpb
     if model_name == "clipspm":
         loss = loss + 0.001 * outputs["dists"]

@@ -5,6 +5,9 @@ weights load from a local OpenAI ``.pt`` (``$CLIP_WEIGHTS_DIR`` or
 ``~/.cache/clip``) straight into the port's OpenAI-named modules, never from
 the network; without one the towers start from a seeded random init and an
 evaluation refuses to run unless random weights are explicitly allowed.
+Heads that are not CLIP heads (``ta2n``) build no CLIP model and no text
+tables: their tables are ``[1, 1]`` zeros and their trunk starts from the
+seeded random init, as in the JAX package (which loads no ImageNet weights).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ CLIP_CHECKPOINT_SHA256 = {
         "afeb0e10f9e5a86da6080e35cf09123aca3b358a0c3e3b6c78a7b63bc04b6762",
 }
 
+CLIP_HEADS = ("clipspm", "clipfsar", "cpm2c", "sten")
 SINGLE_PROMPT_HEADS = ("clipfsar", "sten")
 
 
@@ -151,8 +155,8 @@ def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
 
 def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
                   device=None) -> Learner:
-    """Eval-only wiring: model + weights + text tables + transform, on
-    ``device`` (``cuda`` unless the caller asks for the CPU).
+    """Eval-only wiring: model + weights + text tables (CLIP heads only) +
+    transform, on ``device`` (``cuda`` unless the caller asks for the CPU).
 
     ``allow_random_weights`` (CLI ``--allow-random-weights`` or cfg
     ``MODEL.ALLOW_RANDOM_WEIGHTS``) permits evaluating a CLIP head without
@@ -179,6 +183,10 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
     gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED))
     model = random_init_(build_model(cfg), gen)
     mark("model init")
+    if cfg.MODEL.NAME not in CLIP_HEADS:
+        zeros = torch.zeros(1, 1)
+        return Learner(cfg, model, zeros, zeros, dev,
+                       build_seconds=build_seconds)
     allow_random_weights = (allow_random_weights
                             or bool(cfg.MODEL.get("ALLOW_RANDOM_WEIGHTS",
                                                   False)))

@@ -11,19 +11,23 @@
   ``[out, in]``, BatchNorm ``scale/bias/mean/var`` become
   ``weight/bias/running_mean/running_var``, and ``resblock_i`` becomes
   ``resblocks.i``. The clipspm head's Conv1D kernel ``[3, in, out]`` becomes
-  ``[out, in, 3]``.
+  ``[out, in, 3]``, a Conv3d kernel ``[kt, kh, kw, in, out]`` becomes
+  ``[out, in, kt, kh, kw]``. The torchvision ResNet trunk takes
+  torchvision's keys (the inverse of ``clipspm_tpu/models/backbones/
+  resnet.py:convert_torchvision_resnet``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from .models.backbones.clip import AttentionPool2d, CLIPModel, _Attention
+from .models.heads.ta2n import ACM, TTM
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -41,15 +45,17 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """Initialise ``model`` (on the CPU) in place from ``gen``: Linear/Conv
     weights ``N(0, 1/fan_in)`` and zero biases (flax's lecun-normal
     default), norms at identity with running stats (0, 1), embeddings and
-    CLIP's extra parameters at the JAX package's scales, scalar gains at 1.
+    CLIP's extra parameters at the JAX package's scales, scalar gains at 1;
+    TA2N's ``loc_fc2`` at a zero kernel and bias ``[2, 0]`` and ``mv_fc2``
+    at zero, as the JAX package initialises them.
     """
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
             fan_in = mod.weight[0].numel()
             _normal_(mod.weight, fan_in ** -0.5, gen)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d, nn.BatchNorm3d)):
             mod.reset_parameters()
         elif isinstance(mod, nn.Embedding):
             _normal_(mod.weight, mod.weight.shape[1] ** -0.5, gen)
@@ -65,6 +71,13 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             _normal_(mod.text_projection,
                      mod.arch.transformer_width ** -0.5, gen)
             mod.logit_scale.fill_(math.log(1 / 0.07))
+    for mod in model.modules():
+        if isinstance(mod, TTM):
+            mod.loc_fc2.weight.zero_()
+            mod.loc_fc2.bias.copy_(torch.tensor([2.0, 0.0]))
+        elif isinstance(mod, ACM):
+            mod.mv_fc2.weight.zero_()
+            mod.mv_fc2.bias.zero_()
     for name, p in model.named_parameters():
         if p.dim() == 0 and name.rsplit(".", 1)[-1] in ("mo_alpha1", "scale"):
             p.fill_(1.0)
@@ -133,6 +146,30 @@ def resnet_visual_state_dict(params: Mapping[str, Any],
     return out
 
 
+def torchvision_resnet_state_dict(params: Mapping[str, Any],
+                                  stats: Mapping[str, Any],
+                                  prefix: str = "") -> StateDict:
+    """A JAX ``TorchResNet`` tree -> torchvision keys (``conv1``, ``bn1``,
+    ``layerS.B.convI``, ``layerS.B.downsample.0/1``), ``prefix``
+    prepended."""
+    out: StateDict = {}
+    _conv2d(params["conv1"], out, f"{prefix}conv1")
+    _bn(params["bn1"], stats["bn1"], out, f"{prefix}bn1")
+    for blk in (k for k in params if k.startswith("layer")):
+        stage, b = blk[5:].split("_")
+        key = f"{prefix}layer{stage}.{b}"
+        bp, bs = params[blk], stats[blk]
+        for name in bp:
+            if name.startswith("conv"):
+                _conv2d(bp[name], out, f"{key}.{name}")
+            elif name.startswith("bn"):
+                _bn(bp[name], bs[name], out, f"{key}.{name}")
+        if "down_conv" in bp:
+            _conv2d(bp["down_conv"], out, f"{key}.downsample.0")
+            _bn(bp["down_bn"], bs["down_bn"], out, f"{key}.downsample.1")
+    return out
+
+
 def _resblock(p: Mapping[str, Any], out: StateDict, key: str) -> None:
     _norm(p["ln_1"]["ln"], out, f"{key}.ln_1")
     _norm(p["ln_2"]["ln"], out, f"{key}.ln_2")
@@ -161,36 +198,61 @@ def clip_state_dict(variables: Mapping[str, Any]) -> StateDict:
     return out
 
 
-def head_state_dict(params: Mapping[str, Any], prefix: str = "") -> StateDict:
-    """A JAX ``CLIPSPM`` head tree -> the port's head keys. Names map one to
-    one (path joined by dots); Dense and Conv1D kernels are transposed and
-    LayerNorm ``scale`` becomes ``weight``."""
+def head_state_dict(params: Mapping[str, Any], prefix: str = "",
+                    stats: Optional[Mapping[str, Any]] = None) -> StateDict:
+    """A JAX head tree -> the port's head keys. Names map one to one (path
+    joined by dots); Dense, Conv1D and Conv3d kernels are transposed; a
+    norm with ``batch_stats`` (from ``stats``, the same tree shape) is a
+    BatchNorm, one without is a LayerNorm (``scale`` becomes ``weight``)."""
     out: StateDict = {}
 
-    def walk(node: Mapping[str, Any], path: str) -> None:
+    def walk(node: Mapping[str, Any], st: Mapping[str, Any],
+             path: str) -> None:
         for name, v in node.items():
             key = f"{path}{name}"
             if not isinstance(v, Mapping):
                 out[key] = _t(v)
             elif "kernel" in v:
                 k = _t(v["kernel"])
-                out[f"{key}.weight"] = (k.permute(2, 1, 0) if k.dim() == 3
-                                        else k.T).contiguous()
+                perm = {2: (1, 0), 3: (2, 1, 0), 5: (4, 3, 0, 1, 2)}[k.dim()]
+                out[f"{key}.weight"] = k.permute(*perm).contiguous()
                 if "bias" in v:
                     out[f"{key}.bias"] = _t(v["bias"])
             elif "scale" in v:
-                _norm(v, out, key)
+                if name in st:
+                    _bn(v, st[name], out, key)
+                else:
+                    _norm(v, out, key)
             else:
-                walk(v, f"{key}.")
+                walk(v, st.get(name, {}), f"{key}.")
 
-    walk(params, prefix)
+    walk(params, stats or {}, prefix)
+    return out
+
+
+def ta2n_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``TA2NModel`` variables -> ``models.heads.ta2n.TA2NModel`` state
+    dict (``backbone.*`` in torchvision's keys, the rest by name)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = torchvision_resnet_state_dict(params["backbone"], stats["backbone"],
+                                        prefix="backbone.")
+    rest = {k: v for k, v in params.items() if k != "backbone"}
+    out.update(head_state_dict(rest, stats=stats))
     return out
 
 
 def model_state_dict(variables: Mapping[str, Any]) -> StateDict:
-    """JAX ``CLIPSPMModel`` variables -> ``models.fsar.CLIPSPMModel`` state
-    dict (``backbone.*`` + ``head.*``)."""
+    """JAX model variables -> the port's state dict, by the model the tree
+    is of: ``CLIPSPMModel`` (``backbone`` + ``head``) or ``TA2NModel``
+    (``backbone`` + ``ttm`` + ``acm``)."""
     params = variables["params"]
+    if "ttm" in params:
+        return ta2n_state_dict(variables)
+    if "head" not in params:
+        raise NotImplementedError(
+            f"no port of a model with parameters {sorted(params)}; the port "
+            "carries clipspm and ta2n")
     stats = variables.get("batch_stats", {})
     out = resnet_visual_state_dict(params["backbone"],
                                    stats.get("backbone", {}),

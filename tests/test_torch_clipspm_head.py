@@ -69,7 +69,7 @@ def test_class_prototypes_and_grouping_with_shuffled_labels():
                                           jnp.asarray(labels), way, shot)))
 
 
-@pytest.mark.parametrize("name", ["clipspm", "otam"])
+@pytest.mark.parametrize("name", ["clipspm", "otam", "ta2n"])
 def test_loss_and_accuracy_match_jax(name):
     from clipspm_tpu.train import losses as jlosses
     from clipspm_tpu_torch.train import losses as tlosses

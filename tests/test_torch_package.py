@@ -1,5 +1,5 @@
-"""Guards of the port package: no JAX imports, the GPU default, and the loud
-refusals of the routes this slice does not carry."""
+"""Guards of the port package: no JAX imports, the GPU default, the models
+it builds, and the loud refusals of the routes it does not carry yet."""
 
 import ast
 import importlib
@@ -13,12 +13,14 @@ import clipspm_tpu_torch
 from clipspm_tpu_torch import resolve_device
 from clipspm_tpu_torch.cli.run import main as port_cli
 from clipspm_tpu_torch.models.fsar import build_model
+from clipspm_tpu_torch.models.heads.ta2n import TA2NModel
 from clipspm_tpu_torch.utils.config import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "clipspm_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "clipspm_tpu")
 HMDB = os.path.join(REPO, "configs", "clipspm", "hmdb.yaml")
+UCF_TA2N = os.path.join(REPO, "configs", "ta2n", "ucf.yaml")
 
 
 def _port_sources():
@@ -58,7 +60,13 @@ def test_every_module_imports_without_building_kernels():
                                      "clipspm_tpu_torch."):
         importlib.import_module(mod.name)
     after = set(os.listdir(built)) if os.path.isdir(built) else set()
-    assert not {f for f in after - before if "otam" in f}
+    # a library (or its temporary) of any CUDA source under csrc/; the JPEG
+    # decoder, which other tests build into the same directory, is not one
+    kernels = {os.path.splitext(f)[0]
+               for f in os.listdir(os.path.join(PKG, "csrc"))}
+    assert kernels >= {"otam_dp", "softdtw_dp"}
+    assert not {f for f in after - before
+                if any(f.startswith(f"lib{k}-") for k in kernels)}
 
 
 def test_device_defaults_to_cuda_and_refuses_without_gpu(monkeypatch):
@@ -105,8 +113,26 @@ def test_existing_test_model_path_is_refused(tmp_path):
                   f"CHECKPOINT.CHECKPOINT_DIR={tmp_path}"])
 
 
-@pytest.mark.parametrize("name", ["otam", "trx", "clipfsar", "molo"])
+@pytest.mark.parametrize("name", ["otam", "trx", "clipfsar", "molo", "strm",
+                                  "soap", "sten", "cpm2c"])
 def test_other_heads_raise_not_implemented(name):
     cfg = load_config(HMDB, opts=[f"MODEL.NAME={name}"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg)
+
+
+def test_build_model_builds_ta2n_at_full_width():
+    cfg = load_config(UCF_TA2N, opts=["MODEL.METRIC=otam"])
+    model = build_model(cfg)
+    assert isinstance(model, TA2NModel)
+    assert (model.way, model.shot, model.seq_len) == (5, 1, 8)
+    assert model.metric == "otam" and not model.dist_norm
+    assert model.compute_dtype == torch.bfloat16         # USE_AMP: true
+    assert model.backbone.arch == "resnet50" and model.dim == 2048
+    assert model.backbone.layer3[5].conv3.out_channels == 1024
+    assert model.acm.mv_conv1.in_channels == 4096
+    # the test-size trunk: ResNet-18 at width 8
+    tiny = build_model(load_config(UCF_TA2N, opts=[
+        "MODEL.BACKBONE=test-tiny-resnet", "USE_AMP=false"]))
+    assert tiny.backbone.arch == "resnet18" and tiny.dim == 64
+    assert tiny.metric == "cos" and tiny.compute_dtype is None
