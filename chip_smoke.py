@@ -9,19 +9,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
 1. device: a CUDA device must be visible; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
 2. build: compiles every CUDA source of the port (one ``nvcc`` per source,
-   all started together) and prints the build seconds;
+   all started together), prints the build seconds and what ``ptxas -v``
+   says of each kernel (registers, spills);
 3. kernels against their plain PyTorch versions on the card, forward and
-   gradient, at the main paths' shapes, with CUDA-event timings: K1 (OTAM
-   DP) and K2 (soft-DTW DP);
+   gradient, at the main paths' shapes and the widest tables, with eager
+   and CUDA-graph timings from CUDA events: K1 (OTAM DP) and K2 (soft-DTW
+   DP), each in table mode and in fused mode (cosine table and both DP
+   directions in one launch), the fused modes also against the op chain
+   each launch replaces;
 4. the main paths at full width, each through the port's CLI on random
    weights over a synthetic split, with every kernel launch counter set to
    0 just before the path and read just after:
    - clipspm: CLIP-SPM RN50 (224 crop, T=8, 5-way 5-shot, bf16)
-     feature-cached evaluation over an HMDB-layout split (K1, 6 launches
-     per episode);
+     feature-cached evaluation over an HMDB-layout split (K1's fused
+     mode, 3 launches per episode);
    - ta2n: TA2N on a torchvision ResNet-50 (224 crop, T=8, 5-way 1-shot,
      bf16) with ``MODEL.METRIC=otam``, feature-cached evaluation over a
-     UCF-layout split (K2, 2 launches per episode).
+     UCF-layout split (K2's fused mode, 1 launch per episode).
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -40,6 +44,7 @@ import tempfile
 import time
 
 import torch
+import torch.nn.functional as F
 
 # every CUDA source under clipspm_tpu_torch/csrc/
 SOURCES = ("otam_dp", "softdtw_dp")
@@ -50,20 +55,34 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 
 OTAM_LAMBDAS = (0.5, 0.1)
-# main-path table batches: class prototypes and task prototypes (Q*way =
-# 5*5) and task tokens (1*way); 1600 = 64 episodes x 25 pairs, not a
-# multiple of the 128-thread block
-OTAM_BATCHES = (25, 5, 1600)
+# K1's table mode: main-path-sized batches of [8, 8] tables (class
+# prototypes and task prototypes, Q*way = 5*5; task tokens, 1*way; 1600 = 64
+# episodes x 25 pairs), plus the widest table it takes (Ms + 2 = 34)
+OTAM_TABLES = ((25, 8, 8), (5, 8, 8), (1600, 8, 8), (25, 8, 32))
+# K1's fused mode: (Q, S, D, bidirectional, lambda); the first is the clipspm
+# head's class and task distances (RN50 width 1024, T=8), then its task
+# tokens (Q=1), single direction, a width that is not a multiple of 4 (4-byte
+# copies), and the otam head's lambda
+OTAM_FUSED = ((5, 5, 1024, True, 0.5), (5, 5, 1024, False, 0.5),
+              (1, 5, 1024, True, 0.5), (1, 5, 1024, False, 0.5),
+              (5, 5, 1021, True, 0.5), (5, 5, 1024, True, 0.1))
 OTAM_T = 8
-TOL = 2e-5   # fp32, both sides round the same soft-min differently
+TOL = 2e-5   # fp32 table mode: the same soft-min, rounded in another order
+# fp32 fused modes: 1024- and 2048-long dot products summed in another order
+# than cuBLAS (a few ulps of each table entry), carried through up to 17
+# soft-min steps
+FUSED_TOL = 1e-4
 GRAD_TOL = 2e-4
 
-# K2 on the TA2N head: way*Q = 25 padded tables [T+2, T] per launch; 5 and
-# 1600 as for K1; gamma 0.1 is the head's, 1.0 the function's default
-SDTW_BATCHES = (25, 5, 1600)
-SDTW_N, SDTW_M = 10, 8
+# K2's table mode: the TA2N head's way*Q = 25 padded tables [T+2, T], 5 and
+# 1600 as for K1, plus the widest table it takes (M = 32); gamma 0.1 is the
+# head's, 1.0 the function's default
+SDTW_TABLES = ((25, 10, 8), (5, 10, 8), (1600, 10, 8), (25, 10, 32))
 SDTW_GAMMAS = (0.1, 1.0)
 SDTW_BANDS = (0.0, 2.0)
+# K2's fused mode: B pairs of [8, 2048] ResNet-50 sequences (the head's 25)
+SDTW_FUSED_B = (25, 1600)
+SDTW_T, SDTW_D = 8, 2048
 
 
 def log(msg: str) -> None:
@@ -78,6 +97,9 @@ def phase_device() -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
+    # fp32 matmuls in full fp32 (PyTorch's default, stated): the plain
+    # versions' cosine tables are held against the kernels' FMA dot products
+    torch.backends.cuda.matmul.allow_tf32 = False
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 
@@ -90,176 +112,294 @@ def phase_build() -> None:
         paths = list(pool.map(build.build, SOURCES))
     log(f"build: {len(paths)} CUDA source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
+    for path in paths:
+        with open(f"{path}.ptxas.txt") as f:
+            for line in f:
+                if "Used" in line or "spill" in line or "Function" in line:
+                    log(f"ptxas {os.path.basename(path)}: {line.strip()}")
 
 
-def _time_ms(fn, iters: int = 200) -> float:
-    """Per-call time of ``fn`` launched eagerly, from CUDA events after
-    warm-up (the host's launch rate included where it is slower than the
-    device)."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _bound(bytes_: float, ops: float) -> tuple:
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _otam_dp_ops(B: int, L: int, Ms: int) -> int:
+    """fp32 operations of B OTAM DPs: row 0 one add per cell; per written
+    cell about 15 (soft-min: subtract, scale, clamp and exp per argument, a
+    sum, log, scale, shift, plus the table value)."""
+    return B * (Ms + (L - 1) * (Ms + 1) * 15)
 
 
 def _otam_bound_ms(B: int, L: int, Ms: int) -> tuple:
-    """Least time of one launch: tables read once, results written once;
-    per written cell about 15 fp32 operations (soft-min: subtract, divide,
-    clamp and exp per argument, a sum, log, scale, shift, plus the table
-    value), row 0 one add per cell."""
-    bytes_ = 4 * B * L * Ms + 4 * B
-    ops = B * (Ms + (L - 1) * (Ms + 1) * 15)
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time of one table-mode launch: tables read once, results
+    written once, and the DP's operations."""
+    return _bound(4 * B * L * Ms + 4 * B, _otam_dp_ops(B, L, Ms))
 
 
-def phase_kernels() -> dict:
-    from clipspm_tpu_torch.ops import otam_cuda
-    from clipspm_tpu_torch.ops.otam import otam_cum_dist as plain
-    from clipspm_tpu_torch.tools.k1_variants import graph_ms
+def _otam_fused_bound_ms(Q: int, S: int, L: int, D: int,
+                         bidirectional: bool) -> tuple:
+    """Least time of one fused launch: each feature byte read once, each
+    result written once; the gram's 2 * pairs * L^2 * D FLOPs, the norms
+    of each frame vector once (2 * D each), and the DPs'."""
+    ops = (2 * Q * S * L * L * D + 2 * (Q + S) * L * D
+           + _otam_dp_ops(Q * S, L, L) * (2 if bidirectional else 1))
+    return _bound(4 * (Q + S) * L * D + 4 * Q * S, ops)
 
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    worst_abs = 0.0
-    timings = {}
-    for B in OTAM_BATCHES:
-        for lbda in OTAM_LAMBDAS:
-            tables = (torch.rand(B, OTAM_T, OTAM_T, generator=gen) * 2.0).to(dev)
-            got = otam_cuda.otam_dp_cuda(tables, lbda)
-            want = plain(tables, lbda)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            rel = (err / want.abs().clamp_min(1e-6)).max().item()
-            if not torch.allclose(got, want, rtol=TOL, atol=TOL):
-                raise AssertionError(
-                    f"K1 forward disagrees at B={B} lambda={lbda}: max abs "
-                    f"{err.max().item():.3e}")
-            # gradient through the autograd.Function vs plain autograd
-            t1 = tables.clone().requires_grad_(True)
-            t2 = tables.clone().requires_grad_(True)
-            w = torch.rand(B, generator=gen).to(dev)
-            (otam_cuda.otam_cum_dist(t1, lbda) * w).sum().backward()
-            (plain(t2, lbda) * w).sum().backward()
-            gerr = (t1.grad - t2.grad).abs().max().item()
-            if not torch.allclose(t1.grad, t2.grad, rtol=2e-4, atol=2e-4):
-                raise AssertionError(
-                    f"K1 gradient disagrees at B={B} lambda={lbda}: max abs "
-                    f"{gerr:.3e}")
-            worst_abs = max(worst_abs, err.max().item())
-            k_ms = _time_ms(lambda: otam_cuda.otam_dp_cuda(tables, lbda))
-            k_dev = graph_ms(lambda: otam_cuda.otam_dp_cuda(tables, lbda))
-            p_ms = _time_ms(lambda: plain(tables, lbda), iters=20)
-            p_dev = graph_ms(lambda: plain(tables, lbda), iters=20)
-            bound_ms, bound_by = _otam_bound_ms(B, OTAM_T, OTAM_T)
-            timings[(B, lbda)] = (k_ms, k_dev, p_ms, p_dev, bound_ms,
-                                  bound_by)
-            log(f"K1 otam_dp B={B} lambda={lbda}: max abs err "
-                f"{err.max().item():.3e}, max rel err {rel:.3e}, grad max "
-                f"abs err {gerr:.3e}; kernel_ms {k_ms:.5f} (device "
-                f"{k_dev:.5f}), plain_ms {p_ms:.4f} (device {p_dev:.4f}), "
-                f"bound_ms {bound_ms:.3e} ({bound_by})")
-    log("K1 library_ms: none -- no single PyTorch call computes the OTAM "
-        "soft-min DP")
-    k_ms, k_dev, p_ms, p_dev, bound_ms, bound_by = timings[(25, 0.5)]
-    return {"name": "otam_dp (K1)", "status": "ported", "route": "cuda",
-            "source": "clipspm_tpu_torch/csrc/otam_dp.cu",
-            "replaces": "clipspm_tpu/ops/otam_pallas.py:54",
-            "max_abs_err": worst_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "device_ms": k_dev, "plain_device_ms": p_dev,
-            "shape": [25, OTAM_T, OTAM_T], "lambda": 0.5}
+
+def _sdtw_cells(N: int, M: int, bandwidth: float) -> int:
+    return sum(1 for i in range(1, N + 1) for j in range(1, M + 1)
+               if bandwidth <= 0 or abs(i - j) <= bandwidth)
 
 
 def _sdtw_bound_ms(B: int, N: int, M: int, bandwidth: float) -> tuple:
-    """Least time of one K2 launch: tables read once, results written once;
-    per cell the DP computes (those in the band when ``bandwidth > 0``)
-    about 20 fp32 operations (3-way soft-min: two mins, and per argument a
-    subtract, divide, clamp and exp; two adds, log, scale, shift; plus the
-    table value)."""
-    cells = sum(1 for i in range(1, N + 1) for j in range(1, M + 1)
-                if bandwidth <= 0 or abs(i - j) <= bandwidth)
-    bytes_ = 4 * B * N * M + 4 * B
-    ops = B * cells * 20
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time of one table-mode launch: tables read once, results
+    written once; per DP cell in the band about 20 fp32 operations (3-way
+    soft-min: two mins, and per argument a subtract, scale, clamp and exp;
+    two adds, log, scale, shift; plus the table value)."""
+    return _bound(4 * B * N * M + 4 * B,
+                  B * _sdtw_cells(N, M, bandwidth) * 20)
+
+
+def _sdtw_fused_bound_ms(B: int, T: int, D: int, bandwidth: float) -> tuple:
+    """Least time of one fused launch: each feature byte read once, each
+    result written once; the gram's 2 * B * T^2 * D FLOPs, each vector's
+    norm once, and both padded DPs' cells."""
+    ops = (2 * B * T * T * D + 2 * B * 2 * T * D
+           + 2 * B * _sdtw_cells(T + 2, T, bandwidth) * 20)
+    return _bound(4 * B * 2 * T * D + 4 * B, ops)
+
+
+def _check_close(what: str, got, want, tol: float) -> float:
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"{what} disagrees with its plain version: max "
+                             f"abs {err:.3e} (tolerance {tol})")
+    return err
+
+
+def _check_grads(what: str, kernel_fn, plain_fn, inputs, gen) -> float:
+    """Gradients of a random weighting of the outputs, through the
+    autograd.Function of a kernel entry and through plain autograd."""
+    ks = [x.clone().requires_grad_(True) for x in inputs]
+    ps = [x.clone().requires_grad_(True) for x in inputs]
+    out_k = kernel_fn(*ks)
+    w = torch.rand(out_k.shape, generator=gen).to(out_k.device)
+    (out_k * w).sum().backward()
+    (plain_fn(*ps) * w).sum().backward()
+    worst = 0.0
+    for k, p in zip(ks, ps):
+        worst = max(worst, (k.grad - p.grad).abs().max().item())
+        if not torch.allclose(k.grad, p.grad, rtol=GRAD_TOL, atol=GRAD_TOL):
+            raise AssertionError(f"{what} gradient disagrees: max abs "
+                                 f"{worst:.3e}")
+    return worst
+
+
+def _times(fn, iters: int = 200) -> tuple:
+    """(eager ms, CUDA-graph device ms) per call."""
+    from clipspm_tpu_torch.tools.timing import eager_ms, graph_ms
+
+    return eager_ms(fn, iters), graph_ms(fn, iters)
+
+
+def phase_k1() -> dict:
+    from clipspm_tpu_torch.ops import otam_cuda
+    from clipspm_tpu_torch.ops.otam import frame_distance_cos
+    from clipspm_tpu_torch.ops.otam import otam_cum_dist as plain
+    from clipspm_tpu_torch.ops.otam import otam_distance_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    worst, worst_grad = 0.0, 0.0
+    table, fused = {}, {}
+    for B, L, Ms in OTAM_TABLES:
+        for lbda in OTAM_LAMBDAS:
+            tables = (torch.rand(B, L, Ms, generator=gen) * 2.0).to(dev)
+            what = f"K1 table mode [{B}, {L}, {Ms}] lambda={lbda}"
+            err = _check_close(what, otam_cuda.otam_dp_cuda(tables, lbda),
+                               plain(tables, lbda), TOL)
+            gerr = _check_grads(what, lambda t: otam_cuda.otam_cum_dist(
+                t, lbda), lambda t: plain(t, lbda), [tables], gen)
+            worst, worst_grad = max(worst, err), max(worst_grad, gerr)
+            k_ms, k_dev = _times(lambda: otam_cuda.otam_dp_cuda(tables, lbda))
+            p_ms, p_dev = _times(lambda: plain(tables, lbda), iters=20)
+            bound_ms, bound_by = _otam_bound_ms(B, L, Ms)
+            table[(B, L, Ms, lbda)] = dict(
+                ms=k_ms, device_ms=k_dev, plain_ms=p_ms, plain_device_ms=p_dev,
+                bound_ms=bound_ms, bound_by=bound_by)
+            log(f"{what}: max abs err {err:.3e}, grad max abs err "
+                f"{gerr:.3e}; kernel_ms {k_ms:.5f} (device {k_dev:.5f}), "
+                f"plain_ms {p_ms:.4f} (device {p_dev:.4f}), bound_ms "
+                f"{bound_ms:.3e} ({bound_by})")
+    for Q, S, D, bidir, lbda in OTAM_FUSED:
+        sup = torch.randn(S, OTAM_T, D, generator=gen).to(dev)
+        qry = torch.randn(Q, OTAM_T, D, generator=gen).to(dev)
+        what = (f"K1 fused mode Q={Q} S={S} D={D} bidirectional={bidir} "
+                f"lambda={lbda}")
+        err = _check_close(
+            what, otam_cuda.otam_distance_cuda(sup, qry, lbda, bidir, 0.01),
+            otam_distance_plain(sup, qry, lbda, bidir), FUSED_TOL)
+        gerr = _check_grads(
+            what, lambda s, q: otam_cuda.otam_distance(s, q, lbda, bidir),
+            lambda s, q: otam_distance_plain(s, q, lbda, bidir), [sup, qry],
+            gen)
+        worst, worst_grad = max(worst, err), max(worst_grad, gerr)
+
+        def chain():
+            # what the fused launch replaces: the cosine ops, the copies
+            # and the table-mode launches
+            t = frame_distance_cos(qry, sup)
+            out = otam_cuda.otam_dp_cuda(t.reshape(-1, OTAM_T, OTAM_T)
+                                         .contiguous(), lbda)
+            if bidir:
+                out = out + otam_cuda.otam_dp_cuda(
+                    t.transpose(-2, -1).reshape(-1, OTAM_T, OTAM_T)
+                    .contiguous(), lbda)
+            return out.reshape(Q, S)
+
+        k_ms, k_dev = _times(lambda: otam_cuda.otam_distance_cuda(
+            sup, qry, lbda, bidir, 0.01))
+        c_ms, c_dev = _times(chain)
+        p_ms, p_dev = _times(lambda: otam_distance_plain(sup, qry, lbda,
+                                                         bidir), iters=20)
+        bound_ms, bound_by = _otam_fused_bound_ms(Q, S, OTAM_T, D, bidir)
+        fused[(Q, S, D, bidir, lbda)] = dict(
+            ms=k_ms, device_ms=k_dev, replaced_chain_ms=c_ms,
+            replaced_chain_device_ms=c_dev, plain_ms=p_ms,
+            plain_device_ms=p_dev, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"{what}: max abs err {err:.3e}, grad max abs err {gerr:.3e}; "
+            f"kernel_ms {k_ms:.5f} (device {k_dev:.5f}), replaced chain "
+            f"(cosine ops + table-mode launches) {c_ms:.5f} (device "
+            f"{c_dev:.5f}), plain_ms {p_ms:.4f} (device {p_dev:.4f}), "
+            f"bound_ms {bound_ms:.3e} ({bound_by})")
+        if k_ms >= c_ms or k_dev >= c_dev:
+            raise AssertionError(f"{what}: the fused launch is not faster "
+                                 f"than the chain it replaces")
+    log("K1 library_ms: none -- no single PyTorch call computes the OTAM "
+        "soft-min DP")
+    main = fused[(5, 5, 1024, True, 0.5)]
+    return {"name": "otam_dp (K1)", "status": "ported", "route": "cuda",
+            "source": "clipspm_tpu_torch/csrc/otam_dp.cu",
+            "replaces": "clipspm_tpu/ops/otam_pallas.py:54",
+            "max_abs_err": worst, "max_abs_grad_err": worst_grad,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "fused": {"shape": "Q=5 S=5 L=8 D=1024 bidirectional lambda=0.5",
+                      **main},
+            "table": {"shape": [25, OTAM_T, OTAM_T], "lambda": 0.5,
+                      **table[(25, OTAM_T, OTAM_T, 0.5)]}}
 
 
 def phase_k2() -> dict:
     from clipspm_tpu_torch.ops import softdtw_cuda
+    from clipspm_tpu_torch.ops.softdtw import pairwise_cos_dist
+    from clipspm_tpu_torch.ops.softdtw import softdtw_cos_padded_plain
     from clipspm_tpu_torch.ops.softdtw import softdtw_from_dists as plain
-    from clipspm_tpu_torch.tools.k1_variants import graph_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
-    worst_abs, worst_grad = 0.0, 0.0
-    timings = {}
-    for B in SDTW_BATCHES:
+    worst, worst_grad = 0.0, 0.0
+    table, fused = {}, {}
+    for B, N, M in SDTW_TABLES:
         for gamma in SDTW_GAMMAS:
             for bw in SDTW_BANDS:
-                tables = (torch.rand(B, SDTW_N, SDTW_M, generator=gen)
-                          * 2.0).to(dev)
-                got = softdtw_cuda.softdtw_dp_cuda(tables, gamma, bw)
-                want = plain(tables, gamma, bw)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                if not torch.allclose(got, want, rtol=TOL, atol=TOL):
-                    raise AssertionError(
-                        f"K2 forward disagrees at B={B} gamma={gamma} "
-                        f"bandwidth={bw}: max abs {err:.3e}")
-                t1 = tables.clone().requires_grad_(True)
-                t2 = tables.clone().requires_grad_(True)
-                w = torch.rand(B, generator=gen).to(dev)
-                (softdtw_cuda.softdtw_from_dists(t1, gamma, bw)
-                 * w).sum().backward()
-                (plain(t2, gamma, bw) * w).sum().backward()
-                gerr = (t1.grad - t2.grad).abs().max().item()
-                if not torch.allclose(t1.grad, t2.grad, rtol=GRAD_TOL,
-                                      atol=GRAD_TOL):
-                    raise AssertionError(
-                        f"K2 gradient disagrees at B={B} gamma={gamma} "
-                        f"bandwidth={bw}: max abs {gerr:.3e}")
-                worst_abs = max(worst_abs, err)
-                worst_grad = max(worst_grad, gerr)
-                k_ms = _time_ms(
+                tables = (torch.rand(B, N, M, generator=gen) * 2.0).to(dev)
+                what = (f"K2 table mode [{B}, {N}, {M}] gamma={gamma} "
+                        f"bandwidth={bw}")
+                err = _check_close(
+                    what, softdtw_cuda.softdtw_dp_cuda(tables, gamma, bw),
+                    plain(tables, gamma, bw), TOL)
+                gerr = _check_grads(
+                    what, lambda t: softdtw_cuda.softdtw_from_dists(
+                        t, gamma, bw), lambda t: plain(t, gamma, bw),
+                    [tables], gen)
+                worst, worst_grad = max(worst, err), max(worst_grad, gerr)
+                k_ms, k_dev = _times(
                     lambda: softdtw_cuda.softdtw_dp_cuda(tables, gamma, bw))
-                k_dev = graph_ms(
-                    lambda: softdtw_cuda.softdtw_dp_cuda(tables, gamma, bw))
-                p_ms = _time_ms(lambda: plain(tables, gamma, bw), iters=20)
-                p_dev = graph_ms(lambda: plain(tables, gamma, bw), iters=20)
-                bound_ms, bound_by = _sdtw_bound_ms(B, SDTW_N, SDTW_M, bw)
-                timings[(B, gamma, bw)] = (k_ms, k_dev, p_ms, p_dev,
-                                           bound_ms, bound_by)
-                log(f"K2 softdtw_dp B={B} gamma={gamma} bandwidth={bw}: max "
-                    f"abs err {err:.3e}, grad max abs err {gerr:.3e}; "
-                    f"kernel_ms {k_ms:.5f} (device {k_dev:.5f}), plain_ms "
-                    f"{p_ms:.4f} (device {p_dev:.4f}), bound_ms "
+                p_ms, p_dev = _times(lambda: plain(tables, gamma, bw),
+                                     iters=20)
+                bound_ms, bound_by = _sdtw_bound_ms(B, N, M, bw)
+                table[(B, N, M, gamma, bw)] = dict(
+                    ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                    plain_device_ms=p_dev, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                log(f"{what}: max abs err {err:.3e}, grad max abs err "
+                    f"{gerr:.3e}; kernel_ms {k_ms:.5f} (device {k_dev:.5f}), "
+                    f"plain_ms {p_ms:.4f} (device {p_dev:.4f}), bound_ms "
                     f"{bound_ms:.3e} ({bound_by})")
     # a band narrower than |N - M| prunes the corner: exactly the sentinel
     corner = softdtw_cuda.softdtw_dp_cuda(
-        (torch.rand(3, SDTW_N, 4, generator=gen) * 2.0).to(dev), 0.1, 2.0)
+        (torch.rand(3, 10, 4, generator=gen) * 2.0).to(dev), 0.1, 2.0)
     if not bool((corner == 1e30).all()):
         raise AssertionError(f"K2 pruned corner is not the sentinel: "
                              f"{corner.tolist()}")
+    T, D = SDTW_T, SDTW_D
+    for B in SDTW_FUSED_B:
+        x = torch.randn(B, T, D, generator=gen).to(dev)
+        y = torch.randn(B, T, D, generator=gen).to(dev)
+        for gamma in SDTW_GAMMAS:
+            for bw in SDTW_BANDS:
+                what = (f"K2 fused mode B={B} N=M={T} D={D} gamma={gamma} "
+                        f"bandwidth={bw}")
+                err = _check_close(
+                    what, softdtw_cuda.softdtw_cos_padded_cuda(x, y, gamma,
+                                                               bw),
+                    softdtw_cos_padded_plain(x, y, gamma, bw), FUSED_TOL)
+                gerr = _check_grads(
+                    what, lambda a, b: softdtw_cuda.softdtw_cos_padded(
+                        a, b, gamma, bw),
+                    lambda a, b: softdtw_cos_padded_plain(a, b, gamma, bw),
+                    [x, y], gen)
+                worst, worst_grad = max(worst, err), max(worst_grad, gerr)
+
+                def chain():
+                    # what the fused launch replaces: the cosine ops, the
+                    # pads and the table-mode launches
+                    def padded(a, b):
+                        return softdtw_cuda.softdtw_dp_cuda(
+                            F.pad(pairwise_cos_dist(a, b), (0, 0, 1, 1))
+                            .contiguous(), gamma, bw)
+                    return 0.5 * (padded(x, y) + padded(y, x))
+
+                k_ms, k_dev = _times(lambda: softdtw_cuda
+                                     .softdtw_cos_padded_cuda(x, y, gamma,
+                                                              bw))
+                c_ms, c_dev = _times(chain)
+                p_ms, p_dev = _times(lambda: softdtw_cos_padded_plain(
+                    x, y, gamma, bw), iters=20)
+                bound_ms, bound_by = _sdtw_fused_bound_ms(B, T, D, bw)
+                fused[(B, gamma, bw)] = dict(
+                    ms=k_ms, device_ms=k_dev, replaced_chain_ms=c_ms,
+                    replaced_chain_device_ms=c_dev, plain_ms=p_ms,
+                    plain_device_ms=p_dev, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                log(f"{what}: max abs err {err:.3e}, grad max abs err "
+                    f"{gerr:.3e}; kernel_ms {k_ms:.5f} (device {k_dev:.5f}), "
+                    f"replaced chain (cosine ops + pads + table-mode "
+                    f"launches) {c_ms:.5f} (device {c_dev:.5f}), plain_ms "
+                    f"{p_ms:.4f} (device {p_dev:.4f}), bound_ms "
+                    f"{bound_ms:.3e} ({bound_by})")
+                if k_ms >= c_ms or k_dev >= c_dev:
+                    raise AssertionError(f"{what}: the fused launch is not "
+                                         f"faster than the chain it replaces")
     log("K2 library_ms: none -- no single PyTorch call computes the soft-DTW "
         "DP")
-    k_ms, k_dev, p_ms, p_dev, bound_ms, bound_by = timings[(25, 0.1, 0.0)]
+    main = fused[(25, 0.1, 0.0)]
     return {"name": "softdtw_dp (K2)", "status": "ported", "route": "cuda",
             "source": "clipspm_tpu_torch/csrc/softdtw_dp.cu",
             "replaces": "clipspm_tpu/ops/softdtw_pallas.py:40",
-            "max_abs_err": worst_abs, "max_abs_grad_err": worst_grad,
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "device_ms": k_dev,
-            "plain_device_ms": p_dev, "shape": [25, SDTW_N, SDTW_M],
-            "gamma": 0.1, "bandwidth": 0.0}
+            "max_abs_err": worst, "max_abs_grad_err": worst_grad,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "fused": {"shape": f"B=25 N=M={T} D={D} gamma=0.1 bandwidth=0",
+                      **main},
+            "table": {"shape": [25, 10, 8], "gamma": 0.1, "bandwidth": 0.0,
+                      **table[(25, 10, 8, 0.1, 0.0)]}}
 
 
 # The main paths, each a shipped config at full width on random weights, a
@@ -267,19 +407,19 @@ def phase_k2() -> dict:
 # (frames of 256x256, 10 per video):
 # - clipspm: hmdb.yaml (RN50 CLIP tower, 224 crop, T=8, 5-way 5-shot
 #   1-query, bf16), 10 test classes x 12 videos; three bidirectional OTAM
-#   distances per episode (6 K1 launches);
+#   distances per episode (3 fused K1 launches);
 # - ta2n: ucf.yaml with MODEL.METRIC=otam (ResNet-50 trunk, 224 crop, T=8,
 #   5-way 1-shot 1-query, bf16), 21 test classes x 6 videos; one
-#   forward/reverse soft-DTW per episode (2 K2 launches). The table does not
+#   forward/reverse soft-DTW per episode (1 fused K2 launch). The table does not
 #   depend on METRIC, so the card-vs-CPU head check runs both metrics.
 PATHS = {
     "clipspm": dict(cfg="configs/clipspm/hmdb.yaml", opts=(),
                     frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
-                    classes=10, videos=12, launches={"K1": 6, "K2": 0},
+                    classes=10, videos=12, launches={"K1": 3, "K2": 0},
                     metrics=(None,)),
     "ta2n": dict(cfg="configs/ta2n/ucf.yaml", opts=("MODEL.METRIC=otam",),
                  frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
-                 classes=21, videos=6, launches={"K1": 0, "K2": 2},
+                 classes=21, videos=6, launches={"K1": 0, "K2": 1},
                  metrics=("otam", "cos")),
 }
 MAIN_EPISODES = 300
@@ -288,7 +428,9 @@ SEQ_LEN = 8
 # the head on the card (fp32, no TF32) against the head on the CPU (fp32):
 # sums in another order, so 1e-4 relative and absolute on the logits
 HEAD_TOL = 1e-4
-KERNEL_NAMES = {"K1": "otam_dp_kernel", "K2": "softdtw_dp_kernel"}
+# the device kernels of each, as the profiler names them (both modes)
+KERNEL_NAMES = {"K1": ("otam_dp_kernel", "otam_fused_kernel"),
+                "K2": ("softdtw_dp_kernel", "softdtw_fused_kernel")}
 
 
 def write_split(root: str, frame_dir: str, split_dir: str, classes: int,
@@ -490,14 +632,61 @@ def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
            "device_busy_ms_per_episode": busy_us / episodes / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us,
            "device_ops_per_episode": len(dev) / episodes}
-    for k, kname in KERNEL_NAMES.items():
-        k_us = sum(t for n, t in by_name.items() if kname in n)
+    for k, knames in KERNEL_NAMES.items():
+        k_us = sum(t for n, t in by_name.items()
+                   if any(kname in n for kname in knames))
         out[f"{k.lower()}_device_ms_per_episode"] = k_us / episodes / 1e3
         out[f"{k.lower()}_share_of_device_busy"] = (k_us / busy_us
                                                     if busy_us else None)
     out["top_device_ms_per_episode"] = [[n[:60], t / episodes / 1e3]
                                         for n, t in top]
     return out
+
+
+def k2_on_path_inputs(rec: _Recorder, argv) -> dict:
+    """Is K2's time data-dependent? Its device time on the ta2n head's own
+    inputs (the first episode's aligned sequences, caught at the fused
+    entry) against random inputs of the same shape, and the table mode's on
+    the padded tables of the head's inputs against uniform tables in
+    [0, 2) of the same shape."""
+    from clipspm_tpu_torch.ops import softdtw_cuda
+    from clipspm_tpu_torch.ops.softdtw import pairwise_cos_dist
+    from clipspm_tpu_torch.tools.timing import graph_ms
+
+    learner = rec.learner
+    entry = softdtw_cuda.softdtw_cos_padded_cuda
+    seen = []
+
+    def recording(x, y, gamma, bandwidth=0.0):
+        seen.append((x.clone(), y.clone(), gamma, bandwidth))
+        return entry(x, y, gamma, bandwidth)
+
+    softdtw_cuda.softdtw_cos_padded_cuda = recording
+    try:
+        with torch.no_grad():
+            su, qu, sl, rs, rt, _ = _first_episodes(rec, argv, 1)[0]
+            learner.model.match_features(su, qu, sl, rs, rt,
+                                         learner.text_train,
+                                         learner.text_test)
+    finally:
+        softdtw_cuda.softdtw_cos_padded_cuda = entry
+    x, y, gamma, bw = seen[0]
+    gen = torch.Generator().manual_seed(2)
+    rx = torch.randn(x.shape, generator=gen).to(x.device)
+    ry = torch.randn(y.shape, generator=gen).to(y.device)
+    path_tables = F.pad(pairwise_cos_dist(x, y), (0, 0, 1, 1)).contiguous()
+    uniform = (torch.rand(path_tables.shape, generator=gen)
+               * 2.0).to(x.device)
+    return {
+        "shape": [list(x.shape), list(y.shape)], "gamma": gamma,
+        "fused_path_inputs_device_ms": graph_ms(
+            lambda: entry(x, y, gamma, bw)),
+        "fused_random_inputs_device_ms": graph_ms(
+            lambda: entry(rx, ry, gamma, bw)),
+        "table_path_tables_device_ms": graph_ms(
+            lambda: softdtw_cuda.softdtw_dp_cuda(path_tables, gamma, bw)),
+        "table_uniform_tables_device_ms": graph_ms(
+            lambda: softdtw_cuda.softdtw_dp_cuda(uniform, gamma, bw))}
 
 
 def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
@@ -529,6 +718,10 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
         rec = _Recorder()
         if on_gpu:
             gc.collect()
+            # the cuBLAS workspaces that phase 3's timed matmuls left on
+            # their streams (32 MB each) are not the path's memory
+            if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+                torch._C._cuda_clearCublasWorkspaces()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         with rec.installed():
@@ -541,6 +734,8 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
         peak = torch.cuda.max_memory_allocated() if on_gpu else 0
         head_err = check_head_against_cpu(rec, argv, spec["metrics"])
         head_profile = profile_head(rec, argv) if on_gpu else None
+        if on_gpu and name == "ta2n":
+            head_profile["k2_data_dependence"] = k2_on_path_inputs(rec, argv)
 
     V = res["unique_videos"]
     for k, per_episode in spec["launches"].items():
@@ -580,7 +775,7 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
 def main() -> int:
     device = phase_device()
     phase_build()
-    k1 = phase_kernels()
+    k1 = phase_k1()
     k2 = phase_k2()
     clipspm = phase_main_path("clipspm")
     ta2n = phase_main_path("ta2n")

@@ -4,107 +4,144 @@
 // same function -- R[N, M] of each [N, M] fp32 distance table under
 //   R[0,0] = 0, R[i,0] = R[0,j] = 1e30,
 //   R[i,j] = D[i-1,j-1] + softmin_gamma(R[i-1,j-1], R[i-1,j], R[i,j-1]),
-// with cells |i - j| > bandwidth pruned to 1e30 when bandwidth > 0 -- but
-// not the TPU kernel's layout: the [K, rows, 128] diagonal-major gather and
-// the sublane roll exist to vectorise across 128 lanes and have no use here.
-// The recurrence is serial within one table, so one thread owns one table
-// and walks it row by row, keeping one rolling row of M + 1 floats in
-// registers. The borders are implicit: no padded copy of the table is made.
+// with cells |i - j| > bandwidth pruned to exactly 1e30 when bandwidth > 0
+// -- but not the TPU kernel's layout: the [K, rows, 128] diagonal-major
+// gather and the sublane roll have no use here. Two entries:
 //
-// What bounds it: on the TA2N head (B = 25 tables of 10 x 8 per launch) one
-// launch reads 8 KB and does a few thousand exp/log operations, so neither
-// bytes nor FLOPs bound it: latency does. One launch is as long as one
-// thread's serial walk of its table (80 dependent cells at N = 10, M = 8,
-// each with three IEEE divisions, three expf and one logf) plus the launch
-// itself. The levers, left to later changes, are K1's: batch the episodes'
-// tables into one launch, shorten the chain (multiply by 1/gamma), fuse the
-// cosine table.
+// - table mode, softdtw_dp_launch: [B, N, M] fp32 tables -> [B]. One W-lane
+//   segment of a warp (W = 16 when M <= 16, else 32) owns one table and
+//   runs the anti-diagonal wavefront of dp_wavefront.cuh over it, borders
+//   implicit, reading the table one step ahead of its use.
+// - fused mode, softdtw_cos_padded_launch: x [B, N, D] and y [B, M, D] ->
+//   [B], what ops/softdtw.py:softdtw(x, y, normalize=False, dist="cos")
+//   computes: one block per pair builds the 1 - cos table (each norm
+//   clamped at 1e-8, as pairwise_cos_dist) in shared memory, then one
+//   segment runs the DP over the table with two zero rows on the query
+//   axis (above and below, implicit), a second segment the DP over the
+//   transposed table with its own two implicit zero rows, and the block
+//   writes 0.5 * (forward + reverse). The reverse table is the forward
+//   table's dot products read transposed, where the JAX package takes a
+//   second matmul dist(y, x): equal up to rounding.
 //
-// Soft-min is the clamped, max-shifted form of softdtw.py:_softmin3_masked
-// (clamp at 80, sentinel 1e30) with expf/logf; build without
-// --use_fast_math so the division and the transcendental functions stay
-// IEEE-accurate. A pruned cell is written as 1e30 exactly, as the Pallas
-// kernel does, never as a computed value.
+// What bounds it: neither bytes nor FLOPs. On the TA2N head (25 pairs of
+// 8-frame sequences, D = 2048) a launch reads 3.3 MB of features and does
+// 6.6 MFLOP of dot products; what remains is latency: the launch, the
+// gram's staged loads, and the DP's dependent chain. A padded 10 x 8 table
+// has 80 cells in dependence order; the wavefront runs it in 17 steps of one
+// shuffle and one soft-min, with no division on the chain.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libsoftdtw_dp.so softdtw_dp.cu
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "dp_wavefront.cuh"
 
 namespace {
 
-// Largest table width M the kernel takes (the wrapper raises above).
-constexpr int kMaxM = 32;
-constexpr int kThreads = 128;
-constexpr float kClamp = 80.0f;
-constexpr float kBig = 1e30f;
+constexpr int kMaxM = 32;  // one lane per column
+constexpr int kTableThreads = 128;
 
-__device__ __forceinline__ float softmin3(float a, float b, float c,
-                                          float gamma) {
-  const float m = fminf(fminf(a, b), c);
-  const float ea = expf(-fminf((a - m) / gamma, kClamp));
-  const float eb = expf(-fminf((b - m) / gamma, kClamp));
-  const float ec = expf(-fminf((c - m) / gamma, kClamp));
-  return m - gamma * logf(ea + eb + ec);
+template <int W>
+__global__ void __launch_bounds__(kTableThreads)
+softdtw_dp_kernel(const float* __restrict__ dists, float* __restrict__ out,
+                  int B, int N, int M, float gamma, float inv,
+                  float bandwidth) {
+  const int b = blockIdx.x * (kTableThreads / W) + threadIdx.x / W;
+  const int lane = threadIdx.x % W;
+  // a segment past the last table walks the last one and writes nothing:
+  // every lane of the warp must take part in every shuffle
+  const int bt = b < B ? b : B - 1;
+  const dpw::Strided get{dists + static_cast<size_t>(bt) * N * M, M, 1};
+  const float r = dpw::softdtw_wavefront<W>(get, N, M, lane, N + M - 1,
+                                            gamma, inv, bandwidth);
+  if (b < B && lane == M - 1) out[b] = r;
 }
 
-__global__ void __launch_bounds__(kThreads)
-softdtw_dp_kernel(const float* __restrict__ dists, float* __restrict__ out,
-                  int B, int N, int M, float gamma, float bandwidth) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* table = dists + static_cast<size_t>(b) * N * M;
-  const bool banded = bandwidth > 0.0f;
-
-  // row[j] holds R[i, j] of the row being built (R[i-1, j] before column j
-  // is overwritten); row[0] is the border column and is never stored. Every
-  // index below is a compile-time constant after unrolling, so the row stays
-  // in registers.
-  float row[kMaxM + 1];
-#pragma unroll
-  for (int j = 1; j <= kMaxM; ++j) row[j] = kBig;  // row 0: R[0, j] = BIG
-  float result = kBig;
-
-  for (int i = 1; i <= N; ++i) {
-    const float* drow = table + static_cast<size_t>(i - 1) * M;
-    float upleft = (i == 1) ? 0.0f : kBig;  // R[i-1, 0]
-    float left = kBig;                      // R[i, 0]
-#pragma unroll
-    for (int j = 1; j <= kMaxM; ++j) {
-      if (j <= M) {
-        const float up = row[j];  // R[i-1, j]
-        float c;
-        if (banded && fabsf(static_cast<float>(i - j)) > bandwidth) {
-          c = kBig;
-        } else {
-          c = drow[j - 1] + softmin3(upleft, up, left, gamma);
-        }
-        if (j == M) result = c;
-        upleft = up;
-        left = c;
-        row[j] = c;
-      }
-    }
+template <int W>
+__global__ void __launch_bounds__(dpw::kFusedThreads)
+softdtw_fused_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                     float* __restrict__ out, int N, int M, int D,
+                     float gamma, float inv, float bandwidth, int vec16) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float result[2];
+  const int b = blockIdx.x;
+  // rows: x's steps (the query axis), columns: y's steps
+  const float* tab = dpw::gram_cos_table(
+      x + static_cast<size_t>(b) * N * D, N,
+      y + static_cast<size_t>(b) * M * D, M, D, vec16 != 0, smem,
+      dpw::ClampedCos{});
+  const int pitch = M + 1;
+  if (threadIdx.x < 2 * W) {
+    // segment 0: [N + 2, M], the table between two zero rows; segment 1:
+    // [M + 2, N], the transpose between two zero rows. Both take N + M + 1
+    // steps, so the warp's shuffles stay uniform.
+    const int seg = threadIdx.x / W, lane = threadIdx.x % W;
+    const int rows = seg ? M : N, cols = seg ? N : M;
+    const dpw::PaddedRows get{tab, seg ? 1 : pitch, seg ? pitch : 1, rows};
+    const float r = dpw::softdtw_wavefront<W>(get, rows + 2, cols, lane,
+                                              N + M + 1, gamma, inv,
+                                              bandwidth);
+    if (lane == cols - 1) result[seg] = r;
   }
-  out[b] = result;
+  __syncthreads();
+  if (threadIdx.x == 0) out[b] = 0.5f * (result[0] + result[1]);
 }
 
 }  // namespace
 
 extern "C" {
 
-int softdtw_dp_max_m() { return kMaxM; }
-
-// Launches K2 on `stream` over B contiguous fp32 tables [B, N, M]; writes
-// [B] fp32. Returns cudaGetLastError() (0 on success).
+// Launches K2's table mode on `stream` over B contiguous fp32 tables
+// [B, N, M]; writes [B] fp32. Returns a cudaError_t (0 on success).
 int softdtw_dp_launch(const float* dists, float* out, int B, int N, int M,
                       float gamma, float bandwidth, void* stream) {
   if (B <= 0) return 0;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  softdtw_dp_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      dists, out, B, N, M, gamma, bandwidth);
+  if (N < 1 || M < 1 || M > kMaxM || !(gamma > 0.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float inv = 1.0f / gamma;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 16) {
+    const int per = kTableThreads / 16;
+    softdtw_dp_kernel<16><<<(B + per - 1) / per, kTableThreads, 0, st>>>(
+        dists, out, B, N, M, gamma, inv, bandwidth);
+  } else {
+    const int per = kTableThreads / 32;
+    softdtw_dp_kernel<32><<<(B + per - 1) / per, kTableThreads, 0, st>>>(
+        dists, out, B, N, M, gamma, inv, bandwidth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K2's fused mode on `stream`: contiguous fp32 x [B, N, D] and
+// y [B, M, D] -> [B] fp32, the average of the forward and reverse padded
+// soft-DTW over the 1 - cos table. Returns a cudaError_t (0 on success).
+int softdtw_cos_padded_launch(const float* x, const float* y, float* out,
+                              int B, int N, int M, int D, float gamma,
+                              float bandwidth, void* stream) {
+  if (B <= 0) return 0;
+  if (N < 1 || M < 1 || N > dpw::kMaxFrames || M > dpw::kMaxFrames ||
+      D < 1 || !(gamma > 0.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float inv = 1.0f / gamma;
+  const int vec16 = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const size_t smem = sizeof(float) * dpw::fused_smem_floats(N, M, D);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static bool smem_allowed[2][dpw::kMaxDevices];
+  const bool narrow = N <= 16 && M <= 16;
+  const cudaError_t rc =
+      narrow ? dpw::allow_fused_smem(
+                   reinterpret_cast<const void*>(softdtw_fused_kernel<16>),
+                   smem_allowed[0])
+             : dpw::allow_fused_smem(
+                   reinterpret_cast<const void*>(softdtw_fused_kernel<32>),
+                   smem_allowed[1]);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (narrow)
+    softdtw_fused_kernel<16><<<B, dpw::kFusedThreads, smem, st>>>(
+        x, y, out, N, M, D, gamma, inv, bandwidth, vec16);
+  else
+    softdtw_fused_kernel<32><<<B, dpw::kFusedThreads, smem, st>>>(
+        x, y, out, N, M, D, gamma, inv, bandwidth, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

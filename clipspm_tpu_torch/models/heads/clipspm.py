@@ -4,8 +4,8 @@
 Port of ``clipspm_tpu/models/heads/clipspm.py``. As shipped, the consist and
 text distances are literal 0; logits are ``-(0.5 * class_dists +
 task_dist)``. Each forward makes three bidirectional OTAM distances
-(``ops/otam.py:otam_distance``): six DPs, each a launch of kernel K1 on the
-GPU.
+(``ops/otam.py:otam_distance``), each one launch of kernel K1's fused mode
+on the GPU.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ Port of ``clipspm_tpu/models/heads/ta2n.py``:
   and query;
 - **insupport_align**: multi-shot prototype fusion against the first shot;
 - prototype matching: negative timewise cosine distance (``METRIC: cos``) or
-  soft-DTW at gamma 0.1 (``METRIC: otam``; two DPs per episode, each a launch
-  of kernel K2 on the GPU), optional LayerNorm over the logits.
+  soft-DTW at gamma 0.1 (``METRIC: otam``; on the GPU one launch of kernel
+  K2's fused mode per episode), optional LayerNorm over the logits.
 
 The tensors keep the JAX package's channels-last layout ``[N, T, h, w, C]``
 at every function and between modules; the 3-D convs and pools see

@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``clipspm_tpu_torch/build/`` (git-ignored), then
-loaded with ``ctypes``. The library's file name carries a hash of its source,
-so an edited kernel is rebuilt and a stale build is never loaded. Nothing is
+loaded with ``ctypes``. The library's file name carries a hash of its source
+and of every ``csrc/*.cuh`` header, so an edited kernel or shared header is
+rebuilt and a stale build is never loaded. ``nvcc`` runs with ``-Xptxas -v``
+and its report (registers, shared memory, spills of each kernel) is kept
+beside the library as ``<library>.ptxas.txt``. Nothing is
 built when a module is imported: the CPU tests import every module on a host
 with no ``nvcc``.
 """
@@ -11,6 +14,7 @@ with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -23,7 +27,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -40,9 +44,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The build of ``csrc/<name>.cu``: its name hashes the source and every
+    header under ``csrc/`` (any of them may be included)."""
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:
@@ -60,6 +69,8 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    with open(f"{out}.ptxas.txt", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, out)
     return out
 

@@ -15,8 +15,9 @@ The result is ``C[L-1, M-1]``.
 ``otam_cum_dist`` here is the anti-diagonal wavefront of the reference's
 scan path: every cell of diagonal ``k = l + m`` depends only on diagonals
 ``k-1`` and ``k-2``, so one step updates a whole diagonal of every table.
-It runs under autograd; it is the CPU path and the oracle of kernel K1
-(``ops/otam_cuda.py``), and K1's backward replays it.
+It runs under autograd; it is the CPU path and the oracle of kernel K1's
+table mode (``ops/otam_cuda.py``), and K1's backward replays it;
+``otam_distance_plain`` is the same for K1's fused mode.
 """
 
 from __future__ import annotations
@@ -131,6 +132,20 @@ def frame_distance_cos(query: torch.Tensor, support: torch.Tensor,
     return dist.reshape(Q, Lq, S, Ls).permute(0, 2, 1, 3)
 
 
+def otam_distance_plain(support: torch.Tensor, query: torch.Tensor,
+                        lbda: float = 0.5, bidirectional: bool = True,
+                        epsilon: float = 0.01) -> torch.Tensor:
+    """``otam_distance`` as plain PyTorch: ``frame_distance_cos`` and the
+    wavefront, once over the tables and once over their transposes. The CPU
+    path, the plain version of K1's fused mode, and what its backward
+    replays."""
+    tables = frame_distance_cos(query, support, epsilon)
+    cum = otam_cum_dist(tables, lbda)
+    if bidirectional:
+        cum = cum + otam_cum_dist(tables.transpose(-2, -1), lbda)
+    return cum
+
+
 def otam_distance(support: torch.Tensor, query: torch.Tensor,
                   lbda: float = 0.5, bidirectional: bool = True,
                   epsilon: float = 0.01) -> torch.Tensor:
@@ -141,13 +156,10 @@ def otam_distance(support: torch.Tensor, query: torch.Tensor,
         query: ``[Q, L, D]`` query videos.
     Returns:
         ``[Q, S]`` cumulative distances; bidirectional sums the DP over the
-        table and its transpose. The DP runs as kernel K1 on a CUDA tensor
-        and as the plain wavefront on a CPU tensor (``ops/otam_cuda.py``).
+        table and its transpose. On a CUDA tensor the cosine tables and both
+        DPs are one launch of kernel K1's fused mode; on a CPU tensor
+        ``otam_distance_plain`` (``ops/otam_cuda.py``).
     """
-    from .otam_cuda import otam_cum_dist as dp
+    from .otam_cuda import otam_distance as dispatch
 
-    tables = frame_distance_cos(query, support, epsilon)
-    cum = dp(tables, lbda)
-    if bidirectional:
-        cum = cum + dp(tables.transpose(-2, -1), lbda)
-    return cum
+    return dispatch(support, query, lbda, bidirectional, epsilon)

@@ -14,7 +14,8 @@ and stay at ``BIG``. The result is ``R[N, M]``.
 ``softdtw_from_dists`` here is the anti-diagonal wavefront of the reference's
 scan path. It runs under autograd; it is the CPU path and the oracle of
 kernel K2 (``ops/softdtw_cuda.py``), and K2's backward replays it.
-``softdtw`` builds the tables and runs the DP through K2 on a CUDA tensor.
+``softdtw_cos_padded_plain`` is the same for K2's fused mode. ``softdtw``
+builds the tables and runs the DPs through K2 on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -93,6 +94,27 @@ def pairwise_cos_dist(x: torch.Tensor, y: torch.Tensor,
     return 1.0 - (x / xn) @ (y / yn).transpose(-1, -2)
 
 
+def softdtw_cos_padded_plain(x: torch.Tensor, y: torch.Tensor,
+                             gamma: float = 1.0,
+                             bandwidth: float = 0.0) -> torch.Tensor:
+    """``softdtw(x, y, normalize=False, dist="cos")`` as plain PyTorch,
+    without the trailing ``[..., None]``: the ``1 - cos`` table padded with a
+    zero row on each side of the query axis, the wavefront over it and over
+    the padded reverse table ``dist(y, x)``, averaged. The CPU path, the
+    plain version of K2's fused mode, and what its backward replays."""
+    return _padded_average(x, y, pairwise_cos_dist, softdtw_from_dists,
+                           gamma, bandwidth)
+
+
+def _padded_average(x, y, dist_fn, dp, gamma, bandwidth):
+    def padded(a, b):
+        # the reverse direction pads dist(y, x): not the forward table's
+        # transpose
+        return dp(F.pad(dist_fn(a, b), (0, 0, 1, 1)), gamma, bandwidth)
+
+    return 0.5 * (padded(x, y) + padded(y, x))
+
+
 def softdtw(x: torch.Tensor, y: torch.Tensor, gamma: float = 1.0,
             normalize: bool = False, bandwidth: float = 0.0,
             dist: str = "cos") -> torch.Tensor:
@@ -104,24 +126,21 @@ def softdtw(x: torch.Tensor, y: torch.Tensor, gamma: float = 1.0,
         normalize: if True returns ``sdtw(x,y) - (sdtw(x,x)+sdtw(y,y))/2``;
             otherwise the query axis of the table is zero-padded by one row
             on each side and the forward and reverse DPs are averaged.
-    Returns: ``[B]`` (normalize=True) or ``[B, 1]``. Each DP runs as kernel
-        K2 on a CUDA tensor and as the plain wavefront on a CPU tensor
+    Returns: ``[B]`` (normalize=True) or ``[B, 1]``. On a CUDA tensor the
+        shipped form (``normalize=False``, ``dist="cos"``) is one launch of
+        kernel K2's fused mode, and every other form runs each DP as a
+        launch of K2's table mode; on a CPU tensor the plain wavefront
         (``ops/softdtw_cuda.py``).
     """
+    from .softdtw_cuda import softdtw_cos_padded
     from .softdtw_cuda import softdtw_from_dists as dp
 
+    if not normalize and dist == "cos":
+        return softdtw_cos_padded(x, y, gamma, bandwidth)[..., None]
     dist_fn = pairwise_cos_dist if dist == "cos" else pairwise_l2sq
     if normalize:
         d_xy = dp(dist_fn(x, y), gamma, bandwidth)
         d_xx = dp(dist_fn(x, x), gamma, bandwidth)
         d_yy = dp(dist_fn(y, y), gamma, bandwidth)
         return d_xy - 0.5 * (d_xx + d_yy)
-
-    def padded(a, b):
-        # the reverse direction pads dist(y, x): not the forward table's
-        # transpose
-        return dp(F.pad(dist_fn(a, b), (0, 0, 1, 1)), gamma, bandwidth)
-
-    fwd = padded(x, y)
-    bwd = padded(y, x)
-    return (0.5 * (fwd + bwd))[..., None]
+    return _padded_average(x, y, dist_fn, dp, gamma, bandwidth)[..., None]

@@ -2,7 +2,11 @@
 package's scan wavefront and its Pallas kernel (interpret mode on the CPU).
 
 Both sides use the clamped soft-min (clamp at 80, sentinel 1e30), so the
-forward is held within 2e-5 in fp32 and gradients within 2e-4. The JAX
+forward is held within 2e-5 in fp32 and gradients within 2e-4. K2 has two
+modes: table mode (``softdtw_dp_cuda``, behind ``softdtw_from_dists``) and
+fused mode (``softdtw_cos_padded_cuda``: cosine table, query-axis padding
+and both directions in one launch, behind ``softdtw``); their plain
+versions are the wavefront and ``softdtw_cos_padded_plain``. The JAX
 package is imported inside the fixture that needs it, so the GPU cases also
 run on a machine without JAX:
 
@@ -16,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from clipspm_tpu_torch.ops import otam_cuda, softdtw_cuda
 from clipspm_tpu_torch.ops import softdtw as tsdtw
-from clipspm_tpu_torch.ops import softdtw_cuda
 
 torch.set_num_threads(2)
 
@@ -103,6 +107,28 @@ def test_softdtw_matches_jax(ref, normalize, dist):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("bandwidth", [0.0, 2.0])
+@pytest.mark.parametrize("gamma", [0.1, 1.0])
+@pytest.mark.parametrize("M", [8, 5])
+def test_cos_padded_plain_matches_jax(ref, M, gamma, bandwidth):
+    # the plain composition is K2's fused mode's plain version; on a CPU
+    # tensor softdtw(normalize=False, dist="cos") is that composition
+    rng = np.random.default_rng(10 + M)
+    x = rng.normal(size=(6, 8, 16)).astype(np.float32)
+    y = rng.normal(size=(6, M, 16)).astype(np.float32)
+    got = tsdtw.softdtw_cos_padded_plain(torch.from_numpy(x),
+                                         torch.from_numpy(y), gamma,
+                                         bandwidth).numpy()
+    want = np.asarray(ref.sdtw.softdtw(ref.jnp.asarray(x), ref.jnp.asarray(y),
+                                       gamma, normalize=False,
+                                       bandwidth=bandwidth, dist="cos"))
+    assert got.shape == (6,) and want.shape == (6, 1)
+    np.testing.assert_allclose(got, want[:, 0], **TOL)
+    np.testing.assert_array_equal(
+        tsdtw.softdtw(torch.from_numpy(x), torch.from_numpy(y), gamma,
+                      bandwidth=bandwidth).numpy(), got[:, None])
+
+
 def test_softdtw_gradients_match_jax(ref):
     rng = np.random.default_rng(8)
     x = rng.normal(size=(5, 8, 16)).astype(np.float32)
@@ -138,16 +164,76 @@ def test_pruned_cells_stay_at_the_sentinel():
 
 
 def test_cpu_tensor_never_launches_the_kernel():
-    before = softdtw_cuda.launches
+    before = (otam_cuda.launches, softdtw_cuda.launches)
     softdtw_cuda.softdtw_from_dists(torch.from_numpy(_tables((3, 10, 8))),
                                     0.1)
     tsdtw.softdtw(torch.randn(2, 8, 4), torch.randn(2, 8, 4), gamma=0.1)
-    assert softdtw_cuda.launches == before
+    tsdtw.softdtw(torch.randn(2, 8, 4), torch.randn(2, 6, 4), gamma=1.0,
+                  bandwidth=2.0)
+    tsdtw.softdtw(torch.randn(2, 8, 4), torch.randn(2, 8, 4), normalize=True)
+    assert (otam_cuda.launches, softdtw_cuda.launches) == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         softdtw_cuda.softdtw_dp_cuda(torch.zeros(2, 10, 8), 0.1)
+
+
+class FakeCudaTensor:
+    """What an entry reads of a tensor before it would build or launch
+    (device, dtype, shape, contiguity), on a CUDA device, so the refusals
+    are tested without a GPU."""
+
+    def __init__(self, shape, dtype=torch.float32, contiguous=True):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = torch.device("cuda", 0)
+        self._contiguous = contiguous
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return self._contiguous
+
+
+def _refusing_library():
+    raise AssertionError("the entry built the kernel before refusing")
+
+
+@pytest.mark.parametrize("x,y,error,match", [
+    (torch.zeros(25, 8, 64), torch.zeros(25, 8, 64), ValueError, "CUDA"),
+    (FakeCudaTensor((25, 8, 64), torch.bfloat16), FakeCudaTensor((25, 8, 64)),
+     TypeError, "float32"),
+    (FakeCudaTensor((25, 8, 64)), FakeCudaTensor((25, 8, 64), torch.float16),
+     TypeError, "float32"),
+    (FakeCudaTensor((25, 33, 64)), FakeCudaTensor((25, 8, 64)), ValueError,
+     "steps"),
+    (FakeCudaTensor((25, 8, 64)), FakeCudaTensor((25, 33, 64)), ValueError,
+     "steps"),
+    (FakeCudaTensor((25, 8, 64)), FakeCudaTensor((25, 8, 64),
+                                                 contiguous=False),
+     ValueError, "contiguous"),
+    (FakeCudaTensor((25, 8, 64)), FakeCudaTensor((24, 8, 64)), ValueError,
+     "batch"),
+], ids=["cpu", "bf16", "fp16", "wide-x", "wide-y", "non-contiguous",
+        "batches"])
+def test_fused_entry_refuses_without_building(monkeypatch, x, y, error,
+                                              match):
+    monkeypatch.setattr(softdtw_cuda, "_library", _refusing_library)
+    with pytest.raises(error, match=match):
+        softdtw_cuda.softdtw_cos_padded_cuda(x, y, 0.1)
+
+
+@pytest.mark.parametrize("tables,error,match", [
+    (FakeCudaTensor((2, 10, 8), torch.bfloat16), TypeError, "float32"),
+    (FakeCudaTensor((2, 10, 33)), ValueError, "M <="),
+], ids=["bf16", "wide"])
+def test_table_entry_refuses_without_building(monkeypatch, tables, error,
+                                              match):
+    monkeypatch.setattr(softdtw_cuda, "_library", _refusing_library)
+    with pytest.raises(error, match=match):
+        softdtw_cuda.softdtw_dp_cuda(tables, 0.1)
 
 
 @pytest.fixture
@@ -180,3 +266,73 @@ def test_kernel_matches_plain_on_gpu(cuda_device, B, gamma, bandwidth):
 def test_kernel_keeps_the_sentinel_on_gpu(cuda_device):
     d = torch.from_numpy(_tables((3, 10, 4), seed=6)).to(cuda_device)
     assert (softdtw_cuda.softdtw_dp_cuda(d, 0.1, 2.0) == 1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma,bandwidth", [(0.1, 0.0), (1.0, 2.0)])
+@pytest.mark.parametrize("N,M", [(10, 32), (40, 17), (1, 1), (5, 16)])
+def test_table_mode_wide_and_odd_shapes_on_gpu(cuda_device, N, M, gamma,
+                                               bandwidth):
+    d = torch.from_numpy(_tables((37, N, M), seed=N * 100 + M)).to(
+        cuda_device)
+    torch.testing.assert_close(
+        softdtw_cuda.softdtw_dp_cuda(d, gamma, bandwidth),
+        tsdtw.softdtw_from_dists(d, gamma, bandwidth), **TOL)
+
+
+# fp32 fused mode: the dot products are summed in another order than
+# cuBLAS's, and the reverse table is the forward one read transposed where
+# the plain version takes a second matmul: a few ulps of each table entry,
+# carried through the DP
+FUSED_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma,bandwidth", [(0.1, 0.0), (1.0, 0.0),
+                                             (0.1, 2.0), (1.0, 2.0)])
+@pytest.mark.parametrize("B,N,M,D", [(25, 8, 8, 2048), (3, 10, 6, 61),
+                                     (2, 20, 32, 100), (4, 1, 3, 8)])
+def test_fused_mode_matches_plain_on_gpu(cuda_device, B, N, M, D, gamma,
+                                         bandwidth):
+    gen = torch.Generator().manual_seed(B * 1000 + D)
+    x = torch.randn(B, N, D, generator=gen).to(cuda_device)
+    y = torch.randn(B, M, D, generator=gen).to(cuda_device)
+    before = softdtw_cuda.launches
+    got = tsdtw.softdtw(x, y, gamma, bandwidth=bandwidth)
+    assert softdtw_cuda.launches == before + 1
+    assert got.shape == (B, 1)
+    want = tsdtw.softdtw_cos_padded_plain(x, y, gamma, bandwidth)
+    torch.testing.assert_close(got[:, 0], want, **FUSED_TOL)
+    x1, y1 = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    x2, y2 = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    softdtw_cuda.softdtw_cos_padded(x1, y1, gamma, bandwidth).sum().backward()
+    tsdtw.softdtw_cos_padded_plain(x2, y2, gamma,
+                                   bandwidth).sum().backward()
+    torch.testing.assert_close(x1.grad, x2.grad, **GRAD_TOL)
+    torch.testing.assert_close(y1.grad, y2.grad, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_mode_takes_the_heads_strided_inputs_on_gpu(cuda_device):
+    # the TA2N head's aligned query: pairs[..., D:] of the ACM pair tensor
+    gen = torch.Generator().manual_seed(12)
+    pairs = torch.randn(5, 1, 8, 2 * 2048, generator=gen).to(cuda_device)
+    qu_al, su_al = pairs[..., 2048:], pairs[..., :2048]
+    x, y = qu_al.reshape(5, 8, 2048), su_al.reshape(5, 8, 2048)
+    assert not x.is_contiguous()
+    torch.testing.assert_close(tsdtw.softdtw(x, y, gamma=0.1)[:, 0],
+                               tsdtw.softdtw_cos_padded_plain(x, y, 0.1),
+                               **FUSED_TOL)
+
+
+@pytest.mark.cuda
+def test_other_forms_use_the_table_mode_on_gpu(cuda_device):
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(4, 8, 16, generator=gen).to(cuda_device)
+    y = torch.randn(4, 7, 16, generator=gen).to(cuda_device)
+    for kw, launches in ((dict(normalize=True), 3), (dict(dist="l2sq"), 2)):
+        before = softdtw_cuda.launches
+        got = tsdtw.softdtw(x, y, 1.0, **kw)
+        assert softdtw_cuda.launches == before + launches
+        want = tsdtw.softdtw(x.cpu(), y.cpu(), 1.0, **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
