@@ -25,7 +25,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
      mode, 3 launches per episode);
    - ta2n: TA2N on a torchvision ResNet-50 (224 crop, T=8, 5-way 1-shot,
      bf16) with ``MODEL.METRIC=otam``, feature-cached evaluation over a
-     UCF-layout split (K2's fused mode, 1 launch per episode).
+     UCF-layout split (K2's fused mode, 1 launch per episode);
+   - clipspm-train: 56 episodes of CLIP-SPM RN50 training (5-way 5-shot
+     4-query, 16 episodes an Adam step, bf16) over an HMDB-layout train
+     split, one cached validation, checkpoints, then an ONLY_TEST run from
+     ``checkpoint_best`` (K1's fused mode, 3 launches per episode; K2
+     none); one profiled optimizer step; and one fp32 train step on the
+     card and on the CPU, each held against an fp64 step on the CPU.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -38,6 +44,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -60,12 +67,14 @@ OTAM_LAMBDAS = (0.5, 0.1)
 # episodes x 25 pairs), plus the widest table it takes (Ms + 2 = 34)
 OTAM_TABLES = ((25, 8, 8), (5, 8, 8), (1600, 8, 8), (25, 8, 32))
 # K1's fused mode: (Q, S, D, bidirectional, lambda); the first is the clipspm
-# head's class and task distances (RN50 width 1024, T=8), then its task
-# tokens (Q=1), single direction, a width that is not a multiple of 4 (4-byte
-# copies), and the otam head's lambda
+# head's class and task distances in evaluation (RN50 width 1024, T=8, 5
+# queries), then its task tokens (Q=1), single direction, a width that is not
+# a multiple of 4 (4-byte copies), the otam head's lambda, and the class and
+# task distances in training (4 queries a class: Q=20)
 OTAM_FUSED = ((5, 5, 1024, True, 0.5), (5, 5, 1024, False, 0.5),
               (1, 5, 1024, True, 0.5), (1, 5, 1024, False, 0.5),
-              (5, 5, 1021, True, 0.5), (5, 5, 1024, True, 0.1))
+              (5, 5, 1021, True, 0.5), (5, 5, 1024, True, 0.1),
+              (20, 5, 1024, True, 0.5))
 OTAM_T = 8
 TOL = 2e-5   # fp32 table mode: the same soft-min, rounded in another order
 # fp32 fused modes: 1024- and 2048-long dot products summed in another order
@@ -281,6 +290,9 @@ def phase_k1() -> dict:
     log("K1 library_ms: none -- no single PyTorch call computes the OTAM "
         "soft-min DP")
     main = fused[(5, 5, 1024, True, 0.5)]
+    train = {f"Q={q} S=5 L=8 D=1024 bidirectional lambda=0.5": {
+        "library_ms": None, **fused[(q, 5, 1024, True, 0.5)]}
+        for q in (20, 1)}
     return {"name": "otam_dp (K1)", "status": "ported", "route": "cuda",
             "source": "clipspm_tpu_torch/csrc/otam_dp.cu",
             "replaces": "clipspm_tpu/ops/otam_pallas.py:54",
@@ -290,6 +302,7 @@ def phase_k1() -> dict:
             "library_ms": None,
             "fused": {"shape": "Q=5 S=5 L=8 D=1024 bidirectional lambda=0.5",
                       **main},
+            "train_shapes": train,
             "table": {"shape": [25, OTAM_T, OTAM_T], "lambda": 0.5,
                       **table[(25, OTAM_T, OTAM_T, 0.5)]}}
 
@@ -431,22 +444,79 @@ HEAD_TOL = 1e-4
 # the device kernels of each, as the profiler names them (both modes)
 KERNEL_NAMES = {"K1": ("otam_dp_kernel", "otam_fused_kernel"),
                 "K2": ("softdtw_dp_kernel", "softdtw_fused_kernel")}
+# the profiler range around each of K1's backward replays (train profile)
+REPLAY = "K1 backward: plain replay"
+
+
+def _counters() -> dict:
+    """Each kernel's wrapper module, whose ``launches`` counts its
+    launches."""
+    from clipspm_tpu_torch.ops import otam_cuda, softdtw_cuda
+
+    return {"K1": otam_cuda, "K2": softdtw_cuda}
+
+
+def _zero_counters(counters: dict) -> None:
+    for mod in counters.values():
+        mod.launches = 0
+
+
+def _read_counters(counters: dict) -> dict:
+    return {k: mod.launches for k, mod in counters.items()}
+
+
+def _device_events(prof) -> list:
+    """The device's kernels and copies: the profiler's GPU copies of user
+    ranges (``gpu_user_annotation``, spans that cover idle time) left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name != REPLAY
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _summarize(prof, wall_us: float, n: int, top: int = 6) -> tuple:
+    """The device side of a profile over ``n`` episodes: wall and device
+    busy ms an episode (busy is the sum of the device events' durations; one
+    stream, so they do not overlap), idle share, device ops an episode, each
+    kernel's ms and share, and the top device ops. Returns the summary and
+    the busy microseconds."""
+    dev = _device_events(prof)
+    busy_us = sum(e.device_time_total for e in dev)
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    out = {"episodes": n,
+           "wall_ms_per_episode": wall_us / n / 1e3,
+           "device_busy_ms_per_episode": busy_us / n / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "device_ops_per_episode": len(dev) / n}
+    for k, knames in KERNEL_NAMES.items():
+        k_us = sum(t for name, t in by_name.items()
+                   if any(kname in name for kname in knames))
+        out[f"{k.lower()}_device_ms_per_episode"] = k_us / n / 1e3
+        out[f"{k.lower()}_share_of_device_busy"] = (k_us / busy_us
+                                                    if busy_us else None)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    out["top_device_ms_per_episode"] = [[name[:60], t / n / 1e3]
+                                        for name, t in ranked]
+    return out, busy_us
 
 
 def write_split(root: str, frame_dir: str, split_dir: str, classes: int,
-                videos: int, frames: int, px: int) -> None:
-    """A synthetic split in a dataset's on-disk layout (test side only):
-    ``<frame_dir>/test/<class>/<vid>/NNNNN.jpg`` and
-    ``splits/<split_dir>/testlist03.txt``."""
+                videos: int, frames: int, px: int, mode: str = "test") -> None:
+    """One side of a synthetic split in a dataset's on-disk layout:
+    ``<frame_dir>/<mode>/<class>/<vid>/NNNNN.jpg`` and
+    ``splits/<split_dir>/<mode>list03.txt``."""
     import numpy as np
     from PIL import Image
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(0 if mode == "test" else 1)
     lines = []
     for c in range(classes):
         for v in range(videos):
-            rel = f"class{c:02d}/v{v:03d}"
-            vdir = os.path.join(root, frame_dir, "test", rel)
+            rel = f"{'class' if mode == 'test' else mode}{c:02d}/v{v:03d}"
+            vdir = os.path.join(root, frame_dir, mode, rel)
             os.makedirs(vdir)
             color = tuple(int(x) for x in rng.integers(0, 256, 3))
             img = Image.new("RGB", (px, px), color)
@@ -454,8 +524,8 @@ def write_split(root: str, frame_dir: str, split_dir: str, classes: int,
                 img.save(os.path.join(vdir, f"{f + 1:05d}.jpg"), quality=90)
             lines.append(rel)
     sdir = os.path.join(root, "splits", split_dir)
-    os.makedirs(sdir)
-    with open(os.path.join(sdir, "testlist03.txt"), "w") as fh:
+    os.makedirs(sdir, exist_ok=True)
+    with open(os.path.join(sdir, f"{mode}list03.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
 
 
@@ -591,10 +661,7 @@ def check_head_against_cpu(rec: _Recorder, argv, metrics) -> dict:
 
 def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
     """Where the head's time goes: ``episodes`` head forwards of the main
-    path (bf16, as evaluated) under ``torch.profiler``. Device busy time is
-    the sum of the device events' durations (one stream: they do not
-    overlap); wall time is under the profiler."""
-    from torch.autograd import DeviceType
+    path (bf16, as evaluated) under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     from clipspm_tpu_torch.train.losses import loss_and_acc
@@ -621,26 +688,7 @@ def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
                 run(ep)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in dev)
-    by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out = {"episodes": episodes,
-           "wall_ms_per_episode": wall_us / episodes / 1e3,
-           "device_busy_ms_per_episode": busy_us / episodes / 1e3,
-           "device_idle_share": 1.0 - busy_us / wall_us,
-           "device_ops_per_episode": len(dev) / episodes}
-    for k, knames in KERNEL_NAMES.items():
-        k_us = sum(t for n, t in by_name.items()
-                   if any(kname in n for kname in knames))
-        out[f"{k.lower()}_device_ms_per_episode"] = k_us / episodes / 1e3
-        out[f"{k.lower()}_share_of_device_busy"] = (k_us / busy_us
-                                                    if busy_us else None)
-    out["top_device_ms_per_episode"] = [[n[:60], t / episodes / 1e3]
-                                        for n, t in top]
-    return out
+    return _summarize(prof, wall_us, episodes)[0]
 
 
 def k2_on_path_inputs(rec: _Recorder, argv) -> dict:
@@ -694,7 +742,6 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
     import gc
 
     from clipspm_tpu_torch.cli.run import main as cli_main
-    from clipspm_tpu_torch.ops import otam_cuda, softdtw_cuda
 
     spec = PATHS[name]
     log(f"main path {name}: frames come from a seeded uint8 source right "
@@ -702,7 +749,7 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
         "(native/frame_decoder.cc, which needs libjpeg, or PIL) is held "
         "against the JAX package by the CPU tests")
     on_gpu = torch.device(device).type == "cuda"
-    counters = {"K1": otam_cuda, "K2": softdtw_cuda}
+    counters = _counters()
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         write_split(root, spec["frame_dir"], spec["split_dir"],
@@ -725,12 +772,11 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         with rec.installed():
-            for mod in counters.values():
-                mod.launches = 0
+            _zero_counters(counters)
             t0 = time.perf_counter()
             res = cli_main(argv)
             wall = time.perf_counter() - t0
-            launches = {k: mod.launches for k, mod in counters.items()}
+            launches = _read_counters(counters)
         peak = torch.cuda.max_memory_allocated() if on_gpu else 0
         head_err = check_head_against_cpu(rec, argv, spec["metrics"])
         head_profile = profile_head(rec, argv) if on_gpu else None
@@ -772,6 +818,436 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
     return out
 
 
+# The third main path, training: configs/clipspm/hmdb.yaml as shipped (RN50
+# CLIP tower, 224 crop, T=8, 5-way 5-shot 4-query, TASKS_PER_BATCH=16, bf16,
+# Adam at LR 1e-5) through the port's CLI on random weights, over a synthetic
+# HMDB-layout split: 31 train classes x 9 videos (HMDB51's train split has 31
+# classes; 9 = shot + queries) and the eval paths' 10 test classes x 12.
+# Cut to 56 episodes (three full optimizer steps and one of 8 real episodes),
+# one cached validation of 100 episodes at episode 32, one periodic
+# checkpoint at 48; then an ONLY_TEST run from checkpoint_best. Each train
+# episode makes three fused K1 launches; its backward replays the plain
+# version and launches nothing of K1.
+TRAIN_RUN = dict(episodes=56, val_freq=32, val_episodes=100, save_freq=48,
+                 print_freq=16, train_classes=31, train_videos=9)
+# The train step on the card against the CPU: 2 episodes of 5-way 1-shot
+# 1-query (80 frames each) at full RN50 width, TF32 off, cuDNN's
+# deterministic algorithms, dropout off, center crops, from one set of
+# weights, three times: fp32 on the card, fp32 on the CPU, and fp64 on the
+# CPU, the witness both fp32 runs are held against. The summed gradient is
+# ill-conditioned: every convolution feeds a BatchNorm, so BatchNorm's own
+# gradients and the convolutions' before it are small residues of large
+# cancelling sums, and fp32 rounding alone moves them by percents. The CPU's
+# fp32 error against fp64 measures that for each tensor; the card's, summed
+# by other algorithms in other orders, may be no larger (TRAIN_CHECK_FACTOR
+# times it), or TRAIN_CHECK_FLOOR where the CPU's is smaller; all gradients
+# together the same. Measured on an H100 80GB HBM3 at 700 W: all gradients
+# 1.9% from fp64 on the card and 4.9% on the CPU; no tensor's card error
+# above 0.47 of the CPU's (the worst, early BatchNorm parameters, 2.5%
+# against 6.0%). A wrong gradient path or weight layout is off by O(1). The
+# attention pool's key bias has a zero gradient in exact arithmetic and is
+# held to 1e-5 of the largest gradient norm. BatchNorm running stats and
+# the loss: 1e-4 relative to the witness.
+TRAIN_CHECK_FACTOR = 1.0
+TRAIN_CHECK_FLOOR = 1e-4
+TRAIN_CHECK_TOL = 1e-4
+ZERO_GRAD = ("backbone.attnpool.k_proj.bias",)
+
+
+class _TrainRecorder(_Recorder):
+    """Also times each optimizer step with CUDA events, and counts the
+    kernels' launches of each validation apart from training's."""
+
+    def __init__(self):
+        super().__init__()
+        self.steps = []          # (n episodes, start event, end event)
+        self.val_launches = []   # {kernel: launches} of each validation
+
+    @contextlib.contextmanager
+    def installed(self):
+        from clipspm_tpu_torch.data import pipeline
+        from clipspm_tpu_torch.train import feature_cache, learner
+
+        step = learner.Learner._step
+        evaluate = feature_cache.FeatureCachedEvaluator.evaluate
+        decode = pipeline.decode_path_lists
+        counters = _counters()
+
+        def timed_step(lrn, batch, n_valid):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(lrn, batch, n_valid)
+            ev[1].record()
+            self.steps.append((n_valid, *ev))
+            return out
+
+        def counted_evaluate(ev, n):
+            # the validation's launches apart: set to 0 just before it, read
+            # just after, and training's counts put back
+            train_counts = _read_counters(counters)
+            _zero_counters(counters)
+            try:
+                return evaluate(ev, n)
+            finally:
+                self.val_launches.append(_read_counters(counters))
+                for k, mod in counters.items():
+                    mod.launches = train_counts[k]
+
+        learner.Learner._step = timed_step
+        feature_cache.FeatureCachedEvaluator.evaluate = counted_evaluate
+        pipeline.decode_path_lists = seeded_frames
+        try:
+            with super().installed():
+                yield self
+        finally:
+            learner.Learner._step = step
+            feature_cache.FeatureCachedEvaluator.evaluate = evaluate
+            pipeline.decode_path_lists = decode
+
+
+def _fresh_peak() -> None:
+    import gc
+
+    gc.collect()
+    # cuBLAS workspaces left by earlier phases' timed matmuls (32 MB a
+    # stream) are not the path's memory
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _kernels_under(event) -> int:
+    """Device kernels launched by ``event``'s CPU subtree."""
+    n, todo = 0, [event]
+    while todo:
+        e = todo.pop()
+        n += len(e.kernels)
+        todo.extend(e.cpu_children)
+    return n
+
+
+def profile_train_step(learner, cfg) -> dict:
+    """``torch.profiler`` over one accumulated optimizer step of the trained
+    model (16 fresh episodes of the train stream, bf16, as trained): the
+    shared summary (per episode), and K1's backward's plain replay (a
+    profiler range around each backward call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from clipspm_tpu_torch.data import pipeline
+    from clipspm_tpu_torch.ops import otam_cuda
+    from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
+
+    tpb = learner.tasks_per_batch
+    catalog, sampler = build_catalog_and_sampler(
+        cfg, "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
+    decode = pipeline.decode_path_lists
+    pipeline.decode_path_lists = seeded_frames
+    try:
+        eps = [pipeline.decode_plan(sampler.sample(), catalog)
+               for _ in range(tpb)]
+    finally:
+        pipeline.decode_path_lists = decode
+    batch = learner._ready(*learner._to_device(eps))
+    backward = otam_cuda._OtamDistance.backward
+
+    def ranged(ctx, grad_out):
+        with record_function(REPLAY):
+            return backward(ctx, grad_out)
+
+    otam_cuda._OtamDistance.backward = staticmethod(ranged)
+    try:
+        learner._step(batch, 2)            # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            learner._step(batch, tpb)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        otam_cuda._OtamDistance.backward = backward
+    out, busy_us = _summarize(prof, wall_us, tpb, top=8)
+    replays = [e for e in prof.events() if e.name == REPLAY
+               and e.device_type == DeviceType.CPU]
+    replay_us = sum(e.device_time_total for e in replays)
+    out.update({
+        "k1_backward_replays_per_episode": len(replays) / tpb,
+        "k1_backward_replay_device_ms_per_episode": replay_us / tpb / 1e3,
+        "k1_backward_replay_wall_ms_per_episode":
+            sum(e.cpu_time_total for e in replays) / tpb / 1e3,
+        "k1_backward_replay_device_ops_per_episode":
+            sum(_kernels_under(e) for e in replays) / tpb,
+        "k1_backward_replay_share_of_device_busy": replay_us / busy_us})
+    return out
+
+
+def check_train_step_against_cpu(cfg_path: str) -> dict:
+    """One accumulated train step of 2 episodes at full RN50 width and 224
+    (5-way 1-shot 1-query, T=8) from identical weights: fp32 on the card,
+    fp32 on the CPU and the fp64 witness on the CPU (TF32 off, dropout's
+    modules in eval and BatchNorm in train mode, center crops). Summed
+    gradients, BatchNorm running stats and the loss are held to the
+    tolerances above."""
+    import copy
+
+    import numpy as np
+
+    from clipspm_tpu_torch.data import transforms
+    from clipspm_tpu_torch.data.episode import Episode
+    from clipspm_tpu_torch.models.fsar import build_model
+    from clipspm_tpu_torch.train import learner as learner_mod
+    from clipspm_tpu_torch.utils.config import load_config
+    from clipspm_tpu_torch.weights import random_init_
+
+    cfg = load_config(cfg_path, opts=[
+        "USE_AMP=false", "TRAIN.SHOT=1", "TRAIN.QUERY_PER_CLASS=1",
+        "TRAIN.TASKS_PER_BATCH=2"])
+    way, T = int(cfg.TRAIN.WAY), int(cfg.DATA.SEQ_LEN)
+    base = random_init_(build_model(cfg), torch.Generator().manual_seed(4))
+    text = torch.randn(len(cfg.TRAIN.CLASS_NAME), base.arch.embed_dim,
+                       generator=torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    eps = []
+    for _ in range(2):
+        classes = rng.choice(len(cfg.TRAIN.CLASS_NAME), way,
+                             replace=False).astype(np.int32)
+        lab = rng.permutation(way).astype(np.int32)
+        eps.append(Episode(
+            support_images=rng.integers(0, 256, (way, T, SPLIT_PX, SPLIT_PX,
+                                                 3), dtype=np.uint8),
+            support_labels=lab,
+            target_images=rng.integers(0, 256, (way, T, SPLIT_PX, SPLIT_PX,
+                                                3), dtype=np.uint8),
+            target_labels=np.arange(way, dtype=np.int32),
+            real_support_labels=classes[lab],
+            real_target_labels=classes, batch_class_list=classes))
+
+    def step(dev, dtype):
+        def center(images, *, train, gen=None, **kw):
+            return transforms.episode_device_transform(
+                images, train=False, dtype=dtype, **kw)
+
+        learner_mod.episode_device_transform = center
+        model = copy.deepcopy(base).to(dtype)
+        lrn = learner_mod.Learner(cfg, model, text.to(dtype), text.to(dtype),
+                                  torch.device(dev), log_fn=log)
+        lrn.model.train()
+        for m in lrn.model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.eval()
+        t0 = time.perf_counter()
+        out = lrn.train_episodes(eps)
+        out["seconds"] = time.perf_counter() - t0
+        out["grads"] = {k: p.grad.detach().cpu().double()
+                        for k, p in lrn.model.named_parameters()}
+        out["stats"] = {k: v.detach().cpu().double() for k, v in
+                        lrn.model.state_dict().items() if "running_" in k}
+        return out
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    transform = learner_mod.episode_device_transform
+    torch.set_num_threads(os.cpu_count() or 8)
+    try:
+        card = step("cuda", torch.float32)
+        cpu = step("cpu", torch.float32)
+        ref = step("cpu", torch.float64)
+    finally:
+        learner_mod.episode_device_transform = transform
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def limit(cpu_err):
+        return max(TRAIN_CHECK_FACTOR * cpu_err, TRAIN_CHECK_FLOOR)
+
+    g, c, r = card["grads"], cpu["grads"], ref["grads"]
+    largest = max(float(v.norm()) for v in r.values())
+    rows, bad = [], []
+    for k in r:
+        if not r[k].any():          # unused by the forward (the head's scale)
+            if g[k].any() or c[k].any():
+                bad.append(f"{k}: no gradient in fp64, some in fp32")
+            continue
+        if k in ZERO_GRAD:
+            err = max(float((x[k] - r[k]).norm()) for x in (g, c)) / largest
+            if err > 1e-5:
+                bad.append(f"{k} (zero in exact arithmetic) {err:.3e}")
+            continue
+        err, cpu_err = rel(g[k], r[k]), rel(c[k], r[k])
+        rows.append((err / max(cpu_err, TRAIN_CHECK_FLOOR), err, cpu_err, k))
+        if err > limit(cpu_err):
+            bad.append(f"{k} {err:.3e} (CPU fp32 {cpu_err:.3e})")
+    names = [k for k in r if k not in ZERO_GRAD and r[k].any()]
+    flat = lambda d: torch.cat([d[k].flatten() for k in names])  # noqa
+    total, cpu_total = rel(flat(g), flat(r)), rel(flat(c), flat(r))
+    stats = {x: max(rel(d["stats"][k], v) for k, v in ref["stats"].items())
+             for x, d in (("card", card), ("cpu", cpu))}
+    loss = {x: abs(d["loss"] - ref["loss"]) / abs(ref["loss"])
+            for x, d in (("card", card), ("cpu", cpu))}
+    rows.sort(reverse=True)
+    by_err = sorted(rows, key=lambda row: -row[1])
+    out = {"episodes": 2, "frames_per_episode": 2 * way * T,
+           "grad_tensors": len(rows),
+           "grad_rel_l2_vs_fp64_all": {"card": total, "cpu": cpu_total},
+           "grad_rel_l2_vs_fp64_median": {
+               "card": sorted(e for _, e, _, _ in rows)[len(rows) // 2],
+               "cpu": sorted(e for _, _, e, _ in rows)[len(rows) // 2]},
+           "grad_worst_card_to_cpu": [[k, q, e, ce]
+                                      for q, e, ce, k in rows[:6]],
+           "grad_worst_card": [[k, e, ce] for _, e, ce, k in by_err[:6]],
+           "grad_factor": TRAIN_CHECK_FACTOR,
+           "grad_floor": TRAIN_CHECK_FLOOR,
+           "bn_running_stats_rel_max_vs_fp64": stats,
+           "loss_rel_vs_fp64": loss, "loss_fp64": ref["loss"],
+           "stats_loss_tol": TRAIN_CHECK_TOL,
+           "seconds": {"card": card["seconds"], "cpu": cpu["seconds"],
+                       "cpu_fp64": ref["seconds"]}}
+    log(json.dumps({"train_step_vs_cpu": out}))
+    if total > limit(cpu_total):
+        bad.append(f"all gradients {total:.3e} (CPU fp32 {cpu_total:.3e})")
+    if stats["card"] > TRAIN_CHECK_TOL or loss["card"] > TRAIN_CHECK_TOL:
+        bad.append(f"running stats {stats['card']:.3e}, loss "
+                   f"{loss['card']:.3e}")
+    if bad:
+        raise AssertionError("train step on the card vs the fp64 witness: "
+                             + "; ".join(bad[:8]))
+    return out
+
+
+def phase_train_path() -> dict:
+    from clipspm_tpu_torch.cli.run import main as cli_main
+    from clipspm_tpu_torch.utils.config import load_config
+
+    spec, run = PATHS["clipspm"], TRAIN_RUN
+    counters = _counters()
+    log("train path clipspm-train: frames come from the same seeded uint8 "
+        "source after the decode stage as the eval paths")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    run["train_classes"], run["train_videos"], SPLIT_FRAMES,
+                    SPLIT_PX, mode="train")
+        log(f"train path: wrote {run['train_classes'] * run['train_videos']}"
+            f" train and {spec['classes'] * spec['videos']} test videos in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ckpt = os.path.join(root, "ckpt")
+        flags = ["--cfg", spec["cfg"], "--splits-root", root]
+        opts = [f"DATA.DATA_DIR={root}", f"CHECKPOINT.CHECKPOINT_DIR={ckpt}"]
+        train_opts = [*opts, f"TRAIN.TRAIN_EPISODES={run['episodes']}",
+                      f"TRAIN.VAL_FREQ={run['val_freq']}",
+                      f"TRAIN.PRINT_FREQ={run['print_freq']}",
+                      f"TEST.TEST_EPISODES={run['val_episodes']}",
+                      f"CHECKPOINT.SAVE_FREQ={run['save_freq']}"]
+        rec = _TrainRecorder()
+        _fresh_peak()
+        with rec.installed():
+            _zero_counters(counters)
+            t0 = time.perf_counter()
+            res = cli_main([*flags, "--allow-random-weights", *train_opts])
+            wall = time.perf_counter() - t0
+            train_launches = _read_counters(counters)
+        peak = torch.cuda.max_memory_allocated()
+        learner, val_launches = rec.learner, rec.val_launches
+        build_seconds = learner.build_seconds
+        cfg = load_config(spec["cfg"], opts=train_opts, splits_root=root)
+
+        recs = _read_jsonl(os.path.join(ckpt, "metrics.jsonl"))
+        losses = [r["value"] for r in recs
+                  if r["tag"] == "loss/Train_loss[it]"]
+        val_acc = [r["value"] for r in recs if r["tag"] == "acc/Test_acc"]
+        with open(os.path.join(ckpt, "log.txt")) as f:
+            stalls = [float(x) for x in
+                      re.findall(r"host-stall (\d+)%", f.read())]
+        steps = [(n, a.elapsed_time(b) / 1e3) for n, a, b in rec.steps]
+        want_steps = [16, 16, 16, 8]
+        if [n for n, _ in steps] != want_steps or len(losses) != 4 \
+                or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train path: steps {steps}, losses "
+                                 f"{losses}")
+        if res["episodes"] != run["episodes"]:
+            raise AssertionError(f"train path ran {res['episodes']} episodes")
+        # K1: 3 fused launches an episode (its backward launches none);
+        # K2: none, the clipspm head runs no soft-DTW
+        want = {"train": {"K1": 3 * run["episodes"], "K2": 0},
+                "val": [{"K1": 3 * run["val_episodes"], "K2": 0}]}
+        if train_launches != want["train"] or val_launches != want["val"]:
+            raise AssertionError(f"launches {train_launches} in training and "
+                                 f"{val_launches} in validation; expected "
+                                 f"{want}")
+        for tag in ("best", f"iter_{run['save_freq']}"):
+            if not os.path.isfile(os.path.join(ckpt, f"checkpoint_{tag}",
+                                               "checkpoint.pt")):
+                raise AssertionError(f"no checkpoint_{tag}")
+
+        profile = profile_train_step(learner, cfg)
+        log(json.dumps({"train_profile": profile}))
+        del learner, rec
+
+        # ONLY_TEST from checkpoint_best: the restored state is the saved
+        # one bit for bit
+        best = os.path.join(ckpt, "checkpoint_best")
+        saved = torch.load(os.path.join(best, "checkpoint.pt"),
+                           map_location="cpu", weights_only=True)
+        test_rec = _Recorder()
+        with test_rec.installed():
+            _zero_counters(counters)
+            t0 = time.perf_counter()
+            test_res = cli_main([*flags, *opts, "TEST.ONLY_TEST=true",
+                                 f"TEST.TEST_EPISODES={run['val_episodes']}",
+                                 f"TEST.TEST_MODEL_PATH={best}"])
+            test_wall = time.perf_counter() - t0
+            test_launches = _read_counters(counters)
+        restored = test_rec.learner.model.state_dict()
+        if set(restored) != set(saved["model"]) or not all(
+                torch.equal(restored[k].cpu(), v)
+                for k, v in saved["model"].items()):
+            raise AssertionError("ONLY_TEST's restored state_dict differs "
+                                 "from checkpoint_best's")
+        if test_launches != want["val"][0]:
+            raise AssertionError(f"launches {test_launches} in the ONLY_TEST "
+                                 f"run; expected {want['val'][0]}")
+        del test_rec
+    check = check_train_step_against_cpu(spec["cfg"])
+    rate_steps = steps[1:]
+    out = {"path": "clipspm-train", "episodes": res["episodes"],
+           "step_losses": losses, "step_episodes": [n for n, _ in steps],
+           "step_device_seconds": [s for _, s in steps],
+           "train_episodes_per_s_steps_2_4":
+               sum(n for n, _ in rate_steps) / sum(s for _, s in rate_steps),
+           "seconds_per_optimizer_step_2_3": [s for _, s in steps[1:3]],
+           "host_stall_pct_per_log_line": stalls,
+           "peak_memory_bytes": peak, "cli_seconds": wall,
+           "build_seconds": build_seconds,
+           "launches": {f"{k}_{stage}": n for stage, counts in (
+               ("train", train_launches), ("val", val_launches[0]),
+               ("only_test", test_launches)) for k, n in counts.items()},
+           "val_accuracy_that_saved_best": val_acc[0],
+           "best_meta": saved["meta"],
+           "only_test_accuracy": test_res["accuracy"],
+           "only_test_seconds": test_wall,
+           "checkpoint_round_trip": "bit-equal",
+           "train_step_vs_cpu": check}
+    log(json.dumps({"train_path": out}))
+    return out
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -779,8 +1255,15 @@ def main() -> int:
     k2 = phase_k2()
     clipspm = phase_main_path("clipspm")
     ta2n = phase_main_path("ta2n")
+    train = phase_train_path()
     k1["launches"] = clipspm["launches"]["K1"]
+    k1["launches_by_path"] = {"clipspm": clipspm["launches"]["K1"],
+                              "ta2n": ta2n["launches"]["K1"],
+                              "clipspm-train": train["launches"]["K1_train"]}
     k2["launches"] = ta2n["launches"]["K2"]
+    k2["launches_by_path"] = {"clipspm": clipspm["launches"]["K2"],
+                              "ta2n": ta2n["launches"]["K2"],
+                              "clipspm-train": train["launches"]["K2_train"]}
     log(json.dumps({"kernels": [k1, k2]}))
     log(json.dumps({"ok": True, "device": device}))
     return 0

@@ -1,14 +1,18 @@
 """Frame transforms on the device, batched over whole clips.
 
-Port of the eval branch of ``clipspm_tpu/data/transforms.py`` and of
-``TransformSpec`` (``clipspm_tpu/train/learner.py``). Frames stay NHWC at
-the public boundary: ``[N, T, H, W, 3]`` uint8 in, float in the same layout
-out. The train branch (random crop, flip) is not ported yet (ROADMAP.md).
+Port of ``clipspm_tpu/data/transforms.py`` (eval center crop; train
+per-video flip then random crop) and of ``TransformSpec``
+(``clipspm_tpu/train/learner.py``). Frames stay NHWC at the public boundary:
+``[N, T, H, W, 3]`` uint8 in, float in the same layout out. Train offsets
+and flips are drawn per video from an explicit ``torch.Generator`` on the
+frames' device (``draw_train_offsets``); ``horizontal_flip`` and
+``random_crop`` take them as arguments.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +71,36 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
     return x[..., top: top + size, left: left + size, :]
 
 
+def draw_train_offsets(n: int, h: int, w: int, size: int,
+                       gen: torch.Generator) -> tuple:
+    """Per-video ``(flips [n] bool, tops [n], lefts [n])`` for a flip then a
+    ``size`` crop of ``h x w`` frames, drawn from ``gen`` on its device in
+    that order (the flips first, as the JAX transform splits its key)."""
+    dev = gen.device
+    flips = torch.rand(n, generator=gen, device=dev) < 0.5
+    tops = torch.randint(0, h - size + 1, (n,), generator=gen, device=dev)
+    lefts = torch.randint(0, w - size + 1, (n,), generator=gen, device=dev)
+    return flips, tops, lefts
+
+
+def horizontal_flip(x: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
+    """Mirror the ``[N, T, H, W, C]`` clips whose ``flips[n]`` is set."""
+    return torch.where(flips.to(x.device)[:, None, None, None, None],
+                       x.flip(-2), x)
+
+
+def random_crop(x: torch.Tensor, size: int, tops: torch.Tensor,
+                lefts: torch.Tensor) -> torch.Tensor:
+    """Per-video ``size x size`` crop of ``[N, T, H, W, C]`` clips at
+    ``(tops[n], lefts[n])``: one gather, no host sync."""
+    ar = torch.arange(size, device=x.device)
+    rows = (tops.to(x.device)[:, None] + ar)[:, :, None]         # [N, s, 1]
+    cols = (lefts.to(x.device)[:, None] + ar)[:, None, :]        # [N, 1, s]
+    n = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    # advanced indices around a slice put their [N, s, s] dims first
+    return x[n, :, rows, cols, :].permute(0, 3, 1, 2, 4)
+
+
 def to_float(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     # times the reciprocal: XLA compiles the JAX package's x / 255 to this,
     # so the model input is bit-identical
@@ -82,21 +116,28 @@ def clip_normalize(x: torch.Tensor) -> torch.Tensor:
 def episode_device_transform(images: torch.Tensor, *, train: bool,
                              img_size: int = 224, resize_to: int = 256,
                              flip: bool = True, normalize: bool = False,
-                             dtype=torch.float32) -> torch.Tensor:
+                             dtype=torch.float32,
+                             gen: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
     """Decode-to-model transform for one episode side.
 
     Args:
         images: ``[N, T, H, W, 3]`` uint8 frames.
-        train: must be False here (the train crop and flip are not ported).
+        train: per-video flip (when ``flip``) then random crop, drawn from
+            ``gen``; else the center crop.
     Returns:
         ``[N, T, img_size, img_size, 3]`` float frames in 0-1 (optionally
         CLIP-normalized).
     """
+    x = resize_short_side(images, resize_to)
     if train:
-        raise NotImplementedError(
-            "the train transform (random crop, flip) is not ported yet "
-            "(ROADMAP.md, open item 'training')")
-    x = center_crop(resize_short_side(images, resize_to), img_size)
+        n, _, h, w, _ = x.shape
+        flips, tops, lefts = draw_train_offsets(n, h, w, img_size, gen)
+        if flip:
+            x = horizontal_flip(x, flips)
+        x = random_crop(x, img_size, tops, lefts)
+    else:
+        x = center_crop(x, img_size)
     x = to_float(x, dtype)
     if normalize:
         x = clip_normalize(x)

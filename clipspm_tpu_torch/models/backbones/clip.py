@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.precision import fp32_or_wider
+
 
 @dataclasses.dataclass(frozen=True)
 class CLIPArch:
@@ -79,14 +81,34 @@ class FP32LayerNorm(nn.LayerNorm):
     """LayerNorm computed in fp32 and cast back to the input dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        return super().forward(fp32_or_wider(x)).to(x.dtype)
 
 
 class FP32BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm computed in fp32 (its output stays fp32)."""
+    """BatchNorm computed in fp32 (its output stays fp32; fp64 stays fp64).
+
+    In train mode the running variance takes the *biased* batch variance,
+    as flax's ``nn.BatchNorm`` does (momentum 0.9 there is 0.1 here).
+    ``nn.BatchNorm2d`` folds in the unbiased one, ``n / (n - 1)`` times
+    larger. So the op updates a copy of the ``[C]`` buffer (the copy is
+    what its backward keeps), and the buffer takes the corrected value: the
+    batch statistics stay one fused pass."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        x = fp32_or_wider(x)
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            # var = (1 - m) old + m s2 n/(n-1); the biased update is
+            # var - m s2 / (n - 1) = var - (var - (1 - m) old) / n
+            self.running_var.copy_(
+                var - (var - (1.0 - self.momentum) * self.running_var) / n)
+        return y
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -156,7 +178,7 @@ class AttentionPool2d(nn.Module):
 
         q = split(self.q_proj(tokens[:, :1]))
         k, v = split(self.k_proj(tokens)), split(self.v_proj(tokens))
-        attn = torch.matmul(q, k.transpose(-1, -2)).float() * hd ** -0.5
+        attn = fp32_or_wider(torch.matmul(q, k.transpose(-1, -2))) * hd ** -0.5
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(N, 1, C)
         return self.c_proj(out)[:, 0]

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.precision import fp32_or_wider
+
 
 def cos_sim(x: torch.Tensor, y: torch.Tensor, epsilon: float = 0.01
             ) -> torch.Tensor:
@@ -85,7 +87,7 @@ class AttentionQKV(nn.Module):
             return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
 
         qh, kh, vh = split(self.to_q(q)), split(self.to_k(k)), split(self.to_v(v))
-        attn = torch.matmul(qh, kh.transpose(-1, -2)).float() \
+        attn = fp32_or_wider(torch.matmul(qh, kh.transpose(-1, -2))) \
             * self.dim_head ** -0.5
         attn = torch.softmax(attn, dim=-1).to(vh.dtype)
         out = torch.matmul(attn, vh)
@@ -129,4 +131,4 @@ class TransformerV1(nn.Module):
 
 def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm statistics in fp32, result in the input dtype."""
-    return ln(x.float()).to(x.dtype)
+    return ln(fp32_or_wider(x)).to(x.dtype)

@@ -17,12 +17,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.otam import otam_distance
+from ...utils.precision import fp32_or_wider
 from ..blocks import FeedForward, TransformerV1, class_prototypes, group_by_class
 
 
 def _dis(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean squared L2 norm of ``x - y`` over the trailing feature dims."""
-    diff = (x - y).float()
+    diff = fp32_or_wider(x - y)
     dims = (-2, -1) if diff.dim() >= 3 else (-1,)
     return (diff * diff).sum(dim=dims).mean()
 
@@ -97,7 +98,8 @@ class CLIPSPM(nn.Module):
     def _otam(self, support, query):
         # the DP takes fp32 tables: no bf16 matmul inside the cosine table
         with torch.autocast(support.device.type, enabled=False):
-            return otam_distance(support.float(), query.float(), lbda=0.5,
+            return otam_distance(fp32_or_wider(support),
+                                 fp32_or_wider(query), lbda=0.5,
                                  bidirectional=not self.single_direct)
 
     def _sem(self, su, qu, su_l, context_support, target_context_support):

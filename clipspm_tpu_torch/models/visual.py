@@ -24,9 +24,11 @@ def encode_chunked(backbone: nn.Module, frames: torch.Tensor,
                    chunk: int) -> torch.Tensor:
     """Encode ``[N, ...]`` frames through ``backbone``, ``chunk`` frames per
     call (0 or >= N: one call). A memory knob only: it caps the activations
-    held at once; per-frame results are those of one batched call."""
+    held at once; per-frame results are those of one batched call. In train
+    mode it is one call whatever ``chunk`` says: BatchNorm's batch
+    statistics span every frame of the episode, as in the JAX package."""
     N = frames.shape[0]
-    if not chunk or chunk >= N:
+    if not chunk or chunk >= N or backbone.training:
         return backbone(frames)
     return torch.cat([backbone(frames[i:i + chunk])
                       for i in range(0, N, chunk)], dim=0)

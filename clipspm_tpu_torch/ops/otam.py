@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.precision import fp32_or_wider
+
 
 def softmin_pair(a: torch.Tensor, b: torch.Tensor, lbda: float) -> torch.Tensor:
     m = torch.minimum(a, b)
@@ -53,9 +55,10 @@ def otam_cum_dist(dists: torch.Tensor, lbda: float = 0.5) -> torch.Tensor:
         lbda: soft-min temperature: 0.5 on the CLIP heads, 0.1 on the otam
             head.
     Returns:
-        ``[...]`` cumulative alignment distances ``C[L-1, M-1]`` in fp32.
+        ``[...]`` cumulative alignment distances ``C[L-1, M-1]`` in fp32
+        (fp64 for fp64 tables).
     """
-    D = _pad_cols(dists.to(torch.float32))
+    D = _pad_cols(fp32_or_wider(dists))
     batch_shape = D.shape[:-2]
     L, M = D.shape[-2], D.shape[-1]
     out = _otam_wavefront(D.reshape(-1, L, M), lbda)
@@ -92,7 +95,7 @@ def _otam_wavefront(D: torch.Tensor, lbda: float) -> torch.Tensor:
 def otam_cum_dist_unrolled(dists: torch.Tensor, lbda: float = 0.5
                            ) -> torch.Tensor:
     """Row-by-row oracle of the same recurrence (test reference)."""
-    D = _pad_cols(dists.to(torch.float32))
+    D = _pad_cols(fp32_or_wider(dists))
     L, M = D.shape[-2], D.shape[-1]
     zeros = torch.zeros_like(D[..., 0, 0])
     prev = torch.cumsum(D[..., 0, :], dim=-1)

@@ -21,7 +21,11 @@ read it.)
 
 Each gradient is a ``torch.autograd.Function`` whose backward replays the
 plain version under autograd, as the JAX custom VJP does
-(``otam_pallas.py:146-149``).
+(``otam_pallas.py:146-149``). Under autocast the forward takes fp32 inputs
+with autocast off (``custom_fwd(cast_inputs=float32)``), and the backward
+runs with the forward's autocast state (``custom_bwd``), so the replay is
+fp32 whether ``loss.backward()`` is called inside an autocast block or, as
+the trainer calls it, outside one.
 """
 
 from __future__ import annotations
@@ -133,14 +137,20 @@ def otam_distance_cuda(support: torch.Tensor, query: torch.Tensor,
     return out
 
 
+_fwd = torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
+_bwd = torch.amp.custom_bwd(device_type="cuda")
+
+
 class _OtamDP(torch.autograd.Function):
     @staticmethod
+    @_fwd
     def forward(ctx, tables, lbda):
         ctx.save_for_backward(tables)
         ctx.lbda = lbda
         return otam_dp_cuda(tables, lbda)
 
     @staticmethod
+    @_bwd
     def backward(ctx, grad_out):
         (tables,) = ctx.saved_tensors
         with torch.enable_grad():
@@ -152,6 +162,7 @@ class _OtamDP(torch.autograd.Function):
 
 class _OtamDistance(torch.autograd.Function):
     @staticmethod
+    @_fwd
     def forward(ctx, support, query, lbda, bidirectional, epsilon):
         ctx.save_for_backward(support, query)
         ctx.args = (lbda, bidirectional, epsilon)
@@ -159,6 +170,7 @@ class _OtamDistance(torch.autograd.Function):
                                   epsilon)
 
     @staticmethod
+    @_bwd
     def backward(ctx, grad_out):
         support, query = ctx.saved_tensors
         with torch.enable_grad():

@@ -186,6 +186,10 @@ class FeatureCachedEvaluator:
     @torch.no_grad()
     def evaluate(self, n_episodes: int) -> Dict[str, float]:
         learner, device = self.learner, self.learner.device
+        # eval mode before the table encode: a trainer calls this between
+        # steps, and BatchNorm in train mode would encode with batch
+        # statistics (and move its running ones)
+        model = learner.model.eval()
         t0 = time.perf_counter()
         plans = _collect_plans(self.sampler, n_episodes)
         t_plan = time.perf_counter() - t0
@@ -209,7 +213,6 @@ class FeatureCachedEvaluator:
         real_tgt = stacked(lambda p: p.real_target_labels)
         tgt_labels = stacked(lambda p: p.target_labels)
 
-        model = learner.model.eval()
         t0 = time.perf_counter()
         losses, accs = [], []
         n_batches = -(-n_episodes // self.eval_batch)

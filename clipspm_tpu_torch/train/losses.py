@@ -15,6 +15,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import fp32_or_wider
+
 # loss branches of the JAX dispatch not ported yet: their heads are not
 PENDING_BRANCHES = ("strm", "molo", "clipfsar", "cpm2c", "soap")
 
@@ -23,7 +25,7 @@ def episodic_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Args: logits ``[n_samples, Q, way]``, labels ``[Q]``. Returns the
     sum over queries of the sample-averaged cross-entropy."""
     n = logits.shape[0]
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(fp32_or_wider(logits), dim=-1)
     idx = labels.long()[None, :, None].expand(n, -1, 1)
     log_py = logp.gather(-1, idx)[..., 0]                  # [n, Q]
     score = torch.logsumexp(log_py, dim=0) - math.log(float(n))
@@ -32,16 +34,19 @@ def episodic_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def aggregate_accuracy(logits: torch.Tensor, labels: torch.Tensor
                        ) -> torch.Tensor:
-    avg = torch.logsumexp(logits.float(), dim=0)
+    avg = torch.logsumexp(fp32_or_wider(logits), dim=0)
     pred = avg.argmax(dim=-1)
     return (pred == labels.to(pred.dtype)).float().mean()
 
 
 def loss_and_acc(model_name: str, outputs: Dict[str, torch.Tensor],
                  target_labels: torch.Tensor, tasks_per_batch: int,
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-model loss dispatch: ``(loss, accuracy)`` for one episode. The
-    ``1/tasks_per_batch`` factor is part of the loss."""
+    ``1/tasks_per_batch`` factor is part of the loss. ``train`` is the JAX
+    dispatch's flag; the clipspm and default branches are the same in
+    training and evaluation (only the pending molo and cpm2c branches read
+    it)."""
     tpb = float(tasks_per_batch)
     logits = outputs["logits"]
     if model_name in PENDING_BRANCHES:

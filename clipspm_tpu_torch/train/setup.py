@@ -1,6 +1,6 @@
 """Construction: config -> (model, weights, text tables, data, learner).
 
-Port of the eval half of ``clipspm_tpu/train/setup.py``. Pretrained CLIP
+Port of ``clipspm_tpu/train/setup.py``. Pretrained CLIP
 weights load from a local OpenAI ``.pt`` (``$CLIP_WEIGHTS_DIR`` or
 ``~/.cache/clip``) straight into the port's OpenAI-named modules, never from
 the network; without one the towers start from a seeded random init and an
@@ -8,6 +8,8 @@ evaluation refuses to run unless random weights are explicitly allowed.
 Heads that are not CLIP heads (``ta2n``) build no CLIP model and no text
 tables: their tables are ``[1, 1]`` zeros and their trunk starts from the
 seeded random init, as in the JAX package (which loads no ImageNet weights).
+A training run (``TEST.ONLY_TEST`` false) also gets the train split's
+prefetching ``EpisodeLoader``, seeded with ``MODEL.SEED``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import resolve_device, set_matmul_precision
+from ..data.pipeline import EpisodeLoader
 from ..data.sampler import EpisodeSampler
 from ..data.splits import load_split
 from ..models.backbones.clip import CLIP_ARCHS, CLIPArch, CLIPModel
@@ -139,6 +142,37 @@ def build_text_tables(cfg, clip_model: CLIPModel
         templates))
 
 
+def loader_prefetch(cfg, train: bool) -> int:
+    """Prefetch-queue depth: at least one consumer batch
+    (``TASKS_PER_BATCH`` in training, ``TEST.EVAL_BATCH`` in evaluation),
+    so staging a batch does not wait on per-episode decode;
+    ``DATA.PREFETCH`` overrides."""
+    explicit = int(cfg.DATA.get("PREFETCH", 0) or 0)
+    if explicit:
+        return explicit
+    batch = int(cfg.TRAIN.TASKS_PER_BATCH) if train else \
+        int(cfg.TEST.get("EVAL_BATCH", 1) or 1)
+    return max(4, batch)
+
+
+def has_restorable_checkpoint(cfg) -> bool:
+    """True when an ONLY_TEST run will restore a trained state over the
+    fresh weights: ``checkpoint_best`` under ``CHECKPOINT.CHECKPOINT_DIR``,
+    or a ``TEST.TEST_MODEL_PATH`` (cli/run.py restores either)."""
+    from .checkpoint import CheckpointManager
+
+    ckdir = str(cfg.CHECKPOINT.CHECKPOINT_DIR)
+    return bool(str(cfg.TEST.get("TEST_MODEL_PATH", "") or "")) or (
+        bool(ckdir) and CheckpointManager(ckdir).exists("best"))
+
+
+def check_num_chips(cfg) -> None:
+    if int((cfg.get("DEVICE", {}) or {}).get("NUM_CHIPS", 1) or 1) > 1:
+        raise NotImplementedError(
+            "DEVICE.NUM_CHIPS > 1 is not ported yet (ROADMAP.md, open item "
+            "'DDP')")
+
+
 def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
                               ) -> Tuple[object, EpisodeSampler]:
     """Split catalog + seeded episodic sampler for one split. The eval seed
@@ -155,19 +189,18 @@ def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
 
 def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
                   device=None) -> Learner:
-    """Eval-only wiring: model + weights + text tables (CLIP heads only) +
-    transform, on ``device`` (``cuda`` unless the caller asks for the CPU).
+    """Model + weights + text tables (CLIP heads only) + transform, and for
+    a training run the train ``EpisodeLoader``, on ``device`` (``cuda``
+    unless the caller asks for the CPU).
 
     ``allow_random_weights`` (CLI ``--allow-random-weights`` or cfg
     ``MODEL.ALLOW_RANDOM_WEIGHTS``) permits evaluating a CLIP head without
     pretrained weights or the OpenAI BPE vocab; otherwise that raises
-    :class:`DegradedModeError`.
+    :class:`DegradedModeError`, unless a checkpoint will be restored over
+    them.
     """
     dev = resolve_device(device)
-    if int((cfg.get("DEVICE", {}) or {}).get("NUM_CHIPS", 1) or 1) > 1:
-        raise NotImplementedError(
-            "DEVICE.NUM_CHIPS > 1 is not ported yet (ROADMAP.md, open item "
-            "'DDP')")
+    check_num_chips(cfg)
     use_amp = bool(cfg.get("USE_AMP", False))
     set_matmul_precision(use_amp)
     t0 = time.perf_counter()
@@ -180,13 +213,25 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
         log_fn(f"build_learner: {stage} in {now - t0:.1f}s")
         t0 = now
 
+    def learner(text_train, text_test):
+        loader = None
+        if not bool(cfg.TEST.ONLY_TEST):
+            _, sampler = build_catalog_and_sampler(
+                cfg, "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
+            loader = EpisodeLoader(sampler,
+                                   num_workers=int(cfg.DATA.NUM_WORKERS),
+                                   prefetch=loader_prefetch(cfg, True))
+            mark("loaders")
+        return Learner(cfg, model, text_train, text_test, dev,
+                       build_seconds=build_seconds, train_source=loader,
+                       log_fn=log_fn)
+
     gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED))
     model = random_init_(build_model(cfg), gen)
     mark("model init")
     if cfg.MODEL.NAME not in CLIP_HEADS:
         zeros = torch.zeros(1, 1)
-        return Learner(cfg, model, zeros, zeros, dev,
-                       build_seconds=build_seconds)
+        return learner(zeros, zeros)
     allow_random_weights = (allow_random_weights
                             or bool(cfg.MODEL.get("ALLOW_RANDOM_WEIGHTS",
                                                   False)))
@@ -203,7 +248,8 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
                         "vocabulary, not CLIP's")
     if degraded:
         msg = "; ".join(degraded)
-        if bool(cfg.TEST.ONLY_TEST) and not allow_random_weights:
+        if bool(cfg.TEST.ONLY_TEST) and not allow_random_weights \
+                and not has_restorable_checkpoint(cfg):
             raise DegradedModeError(
                 f"refusing to evaluate CLIP head {cfg.MODEL.NAME!r} in a "
                 f"degraded state: {msg}. Pass --allow-random-weights to "
@@ -215,5 +261,4 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
     text_train, text_test = build_text_tables(cfg, clip_model)
     del clip_model
     mark("text tables")
-    return Learner(cfg, model, text_train, text_test, dev,
-                   build_seconds=build_seconds)
+    return learner(text_train, text_test)

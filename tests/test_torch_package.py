@@ -88,13 +88,13 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("opts,error", [
-    ([], NotImplementedError),                                # training
+    (["MODEL.NAME=ta2n"], NotImplementedError),              # ta2n training
     (["TEST.ONLY_TEST=true", "TEST.CACHE_FEATURES=false"],
      NotImplementedError),                                    # uncached
     (["TEST.ONLY_TEST=true", "TEST.TEST_MODEL_PATH=/nonexistent/ckpt"],
      FileNotFoundError),
-    (["TEST.ONLY_TEST=true", "CHECKPOINT.RESUME_FROM_CHECKPOINT=true"],
-     NotImplementedError),                                    # restore
+    (["TEST.ONLY_TEST=true", "DEVICE.NUM_CHIPS=2"],
+     NotImplementedError),                                    # DDP
 ])
 def test_cli_routes_not_carried_raise_before_model_build(opts, error,
                                                          tmp_path):
@@ -105,12 +105,20 @@ def test_cli_routes_not_carried_raise_before_model_build(opts, error,
 
 
 def test_existing_test_model_path_is_refused(tmp_path):
+    """A TEST_MODEL_PATH that exists but holds no checkpoint (an empty
+    directory, or a file) is refused before the model is built."""
     ckpt = tmp_path / "checkpoint_best"
     ckpt.mkdir()
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    with pytest.raises(FileNotFoundError, match="holds no checkpoint.pt"):
         port_cli(["--cfg", HMDB, "--device", "cpu", "TEST.ONLY_TEST=true",
                   f"TEST.TEST_MODEL_PATH={ckpt}",
                   f"CHECKPOINT.CHECKPOINT_DIR={tmp_path}"])
+    (tmp_path / "head.pt").write_bytes(b"")
+    with pytest.raises(ValueError, match="is a FILE"):
+        port_cli(["--cfg", HMDB, "--device", "cpu", "TEST.ONLY_TEST=true",
+                  f"TEST.TEST_MODEL_PATH={tmp_path / 'head.pt'}",
+                  f"CHECKPOINT.CHECKPOINT_DIR={tmp_path}"])
+    assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
 
 
 @pytest.mark.parametrize("name", ["otam", "trx", "clipfsar", "molo", "strm",
