@@ -26,12 +26,21 @@ Phases, in order; any failure ends the run with a nonzero exit:
    - ta2n: TA2N on a torchvision ResNet-50 (224 crop, T=8, 5-way 1-shot,
      bf16) with ``MODEL.METRIC=otam``, feature-cached evaluation over a
      UCF-layout split (K2's fused mode, 1 launch per episode);
-   - clipspm-train: 56 episodes of CLIP-SPM RN50 training (5-way 5-shot
-     4-query, 16 episodes an Adam step, bf16) over an HMDB-layout train
-     split, one cached validation, checkpoints, then an ONLY_TEST run from
+   - clipspm-vit: the same on the ViT-B/16 tower (feature width 512),
+     whose fp32 features on the card are also held against the CPU's;
+   - clipspm-train and clipspm-vit-train: CLIP-SPM training on the RN50 and
+     the ViT-B/16 towers (5-way 5-shot 4-query, 16 episodes an Adam step,
+     bf16; the ViT in rematerialised chunks of 40 frames keeping the
+     attention outputs) over an HMDB-layout train split, one cached
+     validation, checkpoints, then an ONLY_TEST run from
      ``checkpoint_best`` (K1's fused mode, 3 launches per episode; K2
-     none); one profiled optimizer step; and one fp32 train step on the
-     card and on the CPU, each held against an fp64 step on the CPU.
+     none);
+   - ta2n-train: TA2N training with ``MODEL.METRIC=otam`` (5-way 1-shot
+     4-query, SGD, bf16) over a UCF-layout train split, the same stages
+     (K2's fused mode, 1 launch per episode, its backward the plain
+     version's replay in fp32; K1 none);
+   each train path also profiles one optimizer step and holds one fp32
+   train step on the card and on the CPU against an fp64 step on the CPU.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -70,11 +79,13 @@ OTAM_TABLES = ((25, 8, 8), (5, 8, 8), (1600, 8, 8), (25, 8, 32))
 # head's class and task distances in evaluation (RN50 width 1024, T=8, 5
 # queries), then its task tokens (Q=1), single direction, a width that is not
 # a multiple of 4 (4-byte copies), the otam head's lambda, and the class and
-# task distances in training (4 queries a class: Q=20)
+# task distances in training (4 queries a class: Q=20); then the same three
+# shapes at the ViT-B/16 tower's width 512
 OTAM_FUSED = ((5, 5, 1024, True, 0.5), (5, 5, 1024, False, 0.5),
               (1, 5, 1024, True, 0.5), (1, 5, 1024, False, 0.5),
               (5, 5, 1021, True, 0.5), (5, 5, 1024, True, 0.1),
-              (20, 5, 1024, True, 0.5))
+              (20, 5, 1024, True, 0.5), (5, 5, 512, True, 0.5),
+              (1, 5, 512, True, 0.5), (20, 5, 512, True, 0.5))
 OTAM_T = 8
 TOL = 2e-5   # fp32 table mode: the same soft-min, rounded in another order
 # fp32 fused modes: 1024- and 2048-long dot products summed in another order
@@ -89,8 +100,9 @@ GRAD_TOL = 2e-4
 SDTW_TABLES = ((25, 10, 8), (5, 10, 8), (1600, 10, 8), (25, 10, 32))
 SDTW_GAMMAS = (0.1, 1.0)
 SDTW_BANDS = (0.0, 2.0)
-# K2's fused mode: B pairs of [8, 2048] ResNet-50 sequences (the head's 25)
-SDTW_FUSED_B = (25, 1600)
+# K2's fused mode: B pairs of [8, 2048] ResNet-50 sequences (the head's 25
+# in evaluation, 5 ways x 20 queries = 100 in training)
+SDTW_FUSED_B = (25, 100, 1600)
 SDTW_T, SDTW_D = 8, 2048
 
 
@@ -293,6 +305,9 @@ def phase_k1() -> dict:
     train = {f"Q={q} S=5 L=8 D=1024 bidirectional lambda=0.5": {
         "library_ms": None, **fused[(q, 5, 1024, True, 0.5)]}
         for q in (20, 1)}
+    vit = {f"Q={q} S=5 L=8 D=512 bidirectional lambda=0.5": {
+        "library_ms": None, **fused[(q, 5, 512, True, 0.5)]}
+        for q in (5, 1, 20)}
     return {"name": "otam_dp (K1)", "status": "ported", "route": "cuda",
             "source": "clipspm_tpu_torch/csrc/otam_dp.cu",
             "replaces": "clipspm_tpu/ops/otam_pallas.py:54",
@@ -302,7 +317,7 @@ def phase_k1() -> dict:
             "library_ms": None,
             "fused": {"shape": "Q=5 S=5 L=8 D=1024 bidirectional lambda=0.5",
                       **main},
-            "train_shapes": train,
+            "train_shapes": train, "vit_shapes": vit,
             "table": {"shape": [25, OTAM_T, OTAM_T], "lambda": 0.5,
                       **table[(25, OTAM_T, OTAM_T, 0.5)]}}
 
@@ -411,6 +426,9 @@ def phase_k2() -> dict:
             "library_ms": None,
             "fused": {"shape": f"B=25 N=M={T} D={D} gamma=0.1 bandwidth=0",
                       **main},
+            "train_shape": {
+                "shape": f"B=100 N=M={T} D={D} gamma=0.1 bandwidth=0",
+                "library_ms": None, **fused[(100, 0.1, 0.0)]},
             "table": {"shape": [25, 10, 8], "gamma": 0.1, "bandwidth": 0.0,
                       **table[(25, 10, 8, 0.1, 0.0)]}}
 
@@ -424,7 +442,12 @@ def phase_k2() -> dict:
 # - ta2n: ucf.yaml with MODEL.METRIC=otam (ResNet-50 trunk, 224 crop, T=8,
 #   5-way 1-shot 1-query, bf16), 21 test classes x 6 videos; one
 #   forward/reverse soft-DTW per episode (1 fused K2 launch). The table does not
-#   depend on METRIC, so the card-vs-CPU head check runs both metrics.
+#   depend on METRIC, so the card-vs-CPU head check runs both metrics;
+# - clipspm-vit: hmdb.yaml with MODEL.BACKBONE=ViT-B/16 (the shipped configs'
+#   second tower: width 768, 12 layers, 16-px patches, feature width 512;
+#   30 frames a tower call), the clipspm path's split; 3 fused K1 launches
+#   per episode at D=512. Its tower's fp32 features are held against the
+#   CPU's too.
 PATHS = {
     "clipspm": dict(cfg="configs/clipspm/hmdb.yaml", opts=(),
                     frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
@@ -434,6 +457,11 @@ PATHS = {
                  frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
                  classes=21, videos=6, launches={"K1": 0, "K2": 1},
                  metrics=("otam", "cos")),
+    "clipspm-vit": dict(cfg="configs/clipspm/hmdb.yaml",
+                        opts=("MODEL.BACKBONE=ViT-B/16",),
+                        frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
+                        classes=10, videos=12, launches={"K1": 3, "K2": 0},
+                        metrics=(None,), tower_check=True),
 }
 MAIN_EPISODES = 300
 SPLIT_FRAMES, SPLIT_PX = 10, 256
@@ -441,11 +469,16 @@ SEQ_LEN = 8
 # the head on the card (fp32, no TF32) against the head on the CPU (fp32):
 # sums in another order, so 1e-4 relative and absolute on the logits
 HEAD_TOL = 1e-4
+# the ViT tower on the card (fp32, no TF32; its attention the fused SDPA
+# kernel) against the CPU's over 4 frames: max abs diff <= this times the
+# largest feature magnitude
+TOWER_TOL, TOWER_FRAMES = 1e-4, 4
 # the device kernels of each, as the profiler names them (both modes)
 KERNEL_NAMES = {"K1": ("otam_dp_kernel", "otam_fused_kernel"),
                 "K2": ("softdtw_dp_kernel", "softdtw_fused_kernel")}
-# the profiler range around each of K1's backward replays (train profile)
-REPLAY = "K1 backward: plain replay"
+# the profiler range around each kernel's backward replay (train profile)
+REPLAYS = {"K1": "K1 backward: plain replay",
+           "K2": "K2 backward: plain replay"}
 
 
 def _counters() -> dict:
@@ -471,7 +504,7 @@ def _device_events(prof) -> list:
     from torch.autograd import DeviceType
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and e.name != REPLAY
+            and e.name not in REPLAYS.values()
             and not getattr(e, "is_user_annotation", False)]
 
 
@@ -659,6 +692,35 @@ def check_head_against_cpu(rec: _Recorder, argv, metrics) -> dict:
     return worst
 
 
+def check_tower_against_cpu(rec: _Recorder) -> dict:
+    """The visual tower on the card (fp32 weights, no autocast, no TF32 in
+    cuBLAS or cuDNN) against a CPU copy on the same seeded frames."""
+    import copy
+
+    tower = rec.learner.model.backbone
+    cpu = copy.deepcopy(tower).cpu().float().eval()
+    R = rec.learner.model.arch.image_resolution
+    x = torch.rand(TOWER_FRAMES, R, R, 3,
+                   generator=torch.Generator().manual_seed(7))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = tower(x.to(rec.learner.device)).cpu()
+            want = cpu(x)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if not err <= TOWER_TOL * scale:
+        raise AssertionError(f"the tower on the card vs the CPU: max abs "
+                             f"diff {err:.3e}, largest feature {scale:.3e}")
+    return {"frames": TOWER_FRAMES, "max_abs_diff": err,
+            "max_abs_feature": scale, "tol_of_max": TOWER_TOL}
+
+
 def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
     """Where the head's time goes: ``episodes`` head forwards of the main
     path (bf16, as evaluated) under ``torch.profiler``."""
@@ -779,6 +841,8 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
             launches = _read_counters(counters)
         peak = torch.cuda.max_memory_allocated() if on_gpu else 0
         head_err = check_head_against_cpu(rec, argv, spec["metrics"])
+        tower_err = (check_tower_against_cpu(rec)
+                     if spec.get("tower_check") else None)
         head_profile = profile_head(rec, argv) if on_gpu else None
         if on_gpu and name == "ta2n":
             head_profile["k2_data_dependence"] = k2_on_path_inputs(rec, argv)
@@ -793,8 +857,8 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
         if not math.isfinite(res[key]):
             raise AssertionError(f"{name} path {key} is not finite: {res}")
     model = rec.learner.model
-    tail = ((7, 7, model.dim) if name == "ta2n"
-            else (model.arch.embed_dim,))
+    tail = ((model.arch.embed_dim,) if hasattr(model, "arch")
+            else (7, 7, model.dim))
     want_shape = (V, SEQ_LEN) + tail
     if tuple(rec.table.shape) != want_shape or not bool(
             torch.isfinite(rec.table).all()):
@@ -813,45 +877,82 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
            "peak_memory_bytes": peak,
            "head_vs_cpu_max_abs_logit_diff": head_err,
            "head_vs_cpu_tol": HEAD_TOL}
+    if tower_err is not None:
+        out["tower_vs_cpu"] = tower_err
     log(json.dumps({"main_path": out}))
     log(json.dumps({"head_profile": {"path": name, **(head_profile or {})}}))
     return out
 
 
-# The third main path, training: configs/clipspm/hmdb.yaml as shipped (RN50
-# CLIP tower, 224 crop, T=8, 5-way 5-shot 4-query, TASKS_PER_BATCH=16, bf16,
-# Adam at LR 1e-5) through the port's CLI on random weights, over a synthetic
-# HMDB-layout split: 31 train classes x 9 videos (HMDB51's train split has 31
-# classes; 9 = shot + queries) and the eval paths' 10 test classes x 12.
-# Cut to 56 episodes (three full optimizer steps and one of 8 real episodes),
-# one cached validation of 100 episodes at episode 32, one periodic
-# checkpoint at 48; then an ONLY_TEST run from checkpoint_best. Each train
-# episode makes three fused K1 launches; its backward replays the plain
-# version and launches nothing of K1.
-TRAIN_RUN = dict(episodes=56, val_freq=32, val_episodes=100, save_freq=48,
-                 print_freq=16, train_classes=31, train_videos=9)
-# The train step on the card against the CPU: 2 episodes of 5-way 1-shot
-# 1-query (80 frames each) at full RN50 width, TF32 off, cuDNN's
-# deterministic algorithms, dropout off, center crops, from one set of
-# weights, three times: fp32 on the card, fp32 on the CPU, and fp64 on the
-# CPU, the witness both fp32 runs are held against. The summed gradient is
-# ill-conditioned: every convolution feeds a BatchNorm, so BatchNorm's own
-# gradients and the convolutions' before it are small residues of large
-# cancelling sums, and fp32 rounding alone moves them by percents. The CPU's
-# fp32 error against fp64 measures that for each tensor; the card's, summed
-# by other algorithms in other orders, may be no larger (TRAIN_CHECK_FACTOR
-# times it), or TRAIN_CHECK_FLOOR where the CPU's is smaller; all gradients
-# together the same. Measured on an H100 80GB HBM3 at 700 W: all gradients
-# 1.9% from fp64 on the card and 4.9% on the CPU; no tensor's card error
-# above 0.47 of the CPU's (the worst, early BatchNorm parameters, 2.5%
-# against 6.0%). A wrong gradient path or weight layout is off by O(1). The
-# attention pool's key bias has a zero gradient in exact arithmetic and is
-# held to 1e-5 of the largest gradient norm. BatchNorm running stats and
-# the loss: 1e-4 relative to the witness.
-TRAIN_CHECK_FACTOR = 1.0
+# The train paths: a shipped config's training run through the port's CLI
+# on random weights, over a synthetic train split of the dataset's layout
+# (the train split's class count; videos a class = shot + queries) and its
+# eval path's test split, cut to a few optimizer steps (TASKS_PER_BATCH=16:
+# full steps of 16 and one of the rest), one cached validation of 100
+# episodes, a periodic checkpoint; then an ONLY_TEST run from
+# checkpoint_best. ``launches``: each kernel's launches an episode, in
+# training, validation and the ONLY_TEST run alike (a backward replays the
+# plain version and launches nothing).
+# - clipspm-train: hmdb.yaml as shipped (RN50, 224 crop, T=8, 5-way 5-shot
+#   4-query, bf16, Adam at LR 1e-5), 31 train classes x 9 videos (HMDB51's
+#   train split has 31 classes);
+# - clipspm-vit-train: the same on the ViT-B/16 tower, trained in
+#   rematerialised chunks of 40 frames keeping each block's attention
+#   output (the defaults);
+# - ta2n-train: ucf.yaml with MODEL.METRIC=otam (ResNet-50 trunk, 224 crop,
+#   T=8, 5-way 1-shot 4-query, bf16, SGD at LR 1e-3, momentum 0.9, WD
+#   1e-3), 70 train classes x 5 videos (UCF101's ARN train split has 70
+#   classes). K2 at B = 5 x 20 = 100 pairs in training, 25 in evaluation.
+# Each runs 40 episodes (steps of 16, 16 and 8), validation and a periodic
+# checkpoint at episode 32.
+# ``check``: the one fp32 train step held against fp64 (below): its episodes
+# and shape (one 5-way 1-shot 1-query episode, 80 frames: the CPU's fp64
+# step sets the script's length), the per-tensor factor, and the tensors
+# whose gradient is zero in exact arithmetic.
+TRAIN_PATHS = {
+    "clipspm-train": dict(
+        eval_path="clipspm", train_classes=31, train_videos=9,
+        launches={"K1": 3, "K2": 0},
+        check=dict(factor=1.0, zero_grad=("backbone.attnpool.k_proj.bias",))),
+    "clipspm-vit-train": dict(
+        eval_path="clipspm-vit", train_classes=31, train_videos=9,
+        launches={"K1": 3, "K2": 0}, check=dict(factor=1.0, zero_grad=())),
+    "ta2n-train": dict(
+        eval_path="ta2n", train_classes=70, train_videos=5,
+        launches={"K1": 0, "K2": 1},
+        check=dict(factor=2.0,
+                   zero_grad=("ttm.loc_conv1.bias", "ttm.loc_conv2.bias",
+                              "acm.mv_conv1.bias", "acm.mv_conv2.bias"))),
+}
+TRAIN_EPISODES, VAL_FREQ, SAVE_FREQ, VAL_EPISODES, PRINT_FREQ = \
+    40, 32, 32, 100, 16
+# the profiled optimizer step's episodes (per-episode figures)
+PROFILE_EPISODES = 2
+# The train step on the card against the CPU: ``check``'s episodes at full
+# width and 224, TF32 off, cuDNN's deterministic algorithms, dropout off,
+# center crops, from one set of weights, three times: fp32 on the card,
+# fp32 on the CPU, and fp64 on the CPU, the witness both fp32 runs are held
+# against. Where every convolution feeds a BatchNorm (RN50, ResNet-50) the
+# summed gradient is ill-conditioned: BatchNorm's own gradients and the
+# convolutions' before it are small residues of large cancelling sums, and
+# fp32 rounding alone moves them by percents. The CPU's fp32 error against
+# fp64 measures that for each tensor; the card's, summed by other algorithms
+# in other orders, may be no larger (``check["factor"]`` times it), or
+# TRAIN_CHECK_FLOOR where the CPU's is smaller; all gradients together the
+# same. Measured on an H100 80GB HBM3 at 700 W: RN50, all gradients 1.9%
+# from fp64 on the card and 4.9% on the CPU, no tensor's card error above
+# 0.54 of the CPU's; ViT-B/16 (no BatchNorm), 1.1e-6 and 6.0e-5; ta2n, 2.3%
+# and 4.8%, every tensor's card error below 0.61 of the CPU's but TTM's
+# 2-element loc_fc2 bias, 1.19 (1.28e-3 and 1.08e-3: the gradient of the
+# warp's offset is a sum of cancelling frame differences, where either side
+# may round closer), so ta2n's factor is 2. A wrong gradient path or weight
+# layout is off by O(1).
+# A gradient that is zero in exact arithmetic (the attention pool's key
+# bias; a conv bias right before a train-mode BatchNorm) is held to 1e-5 of
+# the largest gradient norm. BatchNorm running stats and the loss: 1e-4
+# relative to the witness.
 TRAIN_CHECK_FLOOR = 1e-4
 TRAIN_CHECK_TOL = 1e-4
-ZERO_GRAD = ("backbone.attnpool.k_proj.bias",)
 
 
 class _TrainRecorder(_Recorder):
@@ -934,17 +1035,19 @@ def _kernels_under(event) -> int:
 
 def profile_train_step(learner, cfg) -> dict:
     """``torch.profiler`` over one accumulated optimizer step of the trained
-    model (16 fresh episodes of the train stream, bf16, as trained): the
-    shared summary (per episode), and K1's backward's plain replay (a
-    profiler range around each backward call)."""
+    model (PROFILE_EPISODES fresh episodes of the train stream, bf16, as
+    trained): the shared summary (per episode), and each kernel's backward,
+    the plain version's replay (a profiler range around each backward
+    call). For a remat-chunked tower, also one unprofiled step of the same
+    episodes under each remat policy the port honours."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from clipspm_tpu_torch.data import pipeline
-    from clipspm_tpu_torch.ops import otam_cuda
+    from clipspm_tpu_torch.ops import otam_cuda, softdtw_cuda
     from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
 
-    tpb = learner.tasks_per_batch
+    tpb = PROFILE_EPISODES
     catalog, sampler = build_catalog_and_sampler(
         cfg, "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
     decode = pipeline.decode_path_lists
@@ -955,13 +1058,18 @@ def profile_train_step(learner, cfg) -> dict:
     finally:
         pipeline.decode_path_lists = decode
     batch = learner._ready(*learner._to_device(eps))
-    backward = otam_cuda._OtamDistance.backward
+    functions = {"K1": otam_cuda._OtamDistance,
+                 "K2": softdtw_cuda._SoftDTWCosPadded}
+    backwards = {k: f.backward for k, f in functions.items()}
 
-    def ranged(ctx, grad_out):
-        with record_function(REPLAY):
-            return backward(ctx, grad_out)
+    def ranged(name, backward):
+        def run(ctx, grad_out):
+            with record_function(name):
+                return backward(ctx, grad_out)
+        return staticmethod(run)
 
-    otam_cuda._OtamDistance.backward = staticmethod(ranged)
+    for k, f in functions.items():
+        f.backward = ranged(REPLAYS[k], backwards[k])
     try:
         learner._step(batch, 2)            # warm-up
         torch.cuda.synchronize()
@@ -972,29 +1080,45 @@ def profile_train_step(learner, cfg) -> dict:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
-        otam_cuda._OtamDistance.backward = backward
+        for k, f in functions.items():
+            f.backward = staticmethod(backwards[k])
     out, busy_us = _summarize(prof, wall_us, tpb, top=8)
-    replays = [e for e in prof.events() if e.name == REPLAY
-               and e.device_type == DeviceType.CPU]
-    replay_us = sum(e.device_time_total for e in replays)
-    out.update({
-        "k1_backward_replays_per_episode": len(replays) / tpb,
-        "k1_backward_replay_device_ms_per_episode": replay_us / tpb / 1e3,
-        "k1_backward_replay_wall_ms_per_episode":
-            sum(e.cpu_time_total for e in replays) / tpb / 1e3,
-        "k1_backward_replay_device_ops_per_episode":
-            sum(_kernels_under(e) for e in replays) / tpb,
-        "k1_backward_replay_share_of_device_busy": replay_us / busy_us})
+    model = learner.model
+    if getattr(model, "train_encode_chunk", 0):
+        policy, seconds = model.train_remat_policy, {}
+        for p in ("attn_out", "full", "dots"):
+            model.train_remat_policy = p
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learner._step(batch, tpb)
+            torch.cuda.synchronize()
+            seconds[p] = (time.perf_counter() - t0) / tpb
+        model.train_remat_policy = policy
+        out["remat_policy_step_seconds_per_episode"] = seconds
+    for k, name in REPLAYS.items():
+        replays = [e for e in prof.events() if e.name == name
+                   and e.device_type == DeviceType.CPU]
+        replay_us = sum(e.device_time_total for e in replays)
+        pre = f"{k.lower()}_backward_replay"
+        out.update({
+            f"{pre}s_per_episode": len(replays) / tpb,
+            f"{pre}_device_ms_per_episode": replay_us / tpb / 1e3,
+            f"{pre}_wall_ms_per_episode":
+                sum(e.cpu_time_total for e in replays) / tpb / 1e3,
+            f"{pre}_device_ops_per_episode":
+                sum(_kernels_under(e) for e in replays) / tpb,
+            f"{pre}_share_of_device_busy": replay_us / busy_us,
+            f"{pre}_share_of_wall":
+                sum(e.cpu_time_total for e in replays) / wall_us})
     return out
 
 
-def check_train_step_against_cpu(cfg_path: str) -> dict:
-    """One accumulated train step of 2 episodes at full RN50 width and 224
-    (5-way 1-shot 1-query, T=8) from identical weights: fp32 on the card,
-    fp32 on the CPU and the fp64 witness on the CPU (TF32 off, dropout's
-    modules in eval and BatchNorm in train mode, center crops). Summed
-    gradients, BatchNorm running stats and the loss are held to the
-    tolerances above."""
+def check_train_step_against_cpu(cfg_path: str, opts, check: dict) -> dict:
+    """One train step of one episode at full width and 224 (5-way 1-shot
+    1-query, T=8) from identical weights: fp32 on the card, fp32 on the CPU
+    and the fp64 witness on the CPU (TF32 off, dropout's modules in eval and
+    BatchNorm in train mode, center crops). Summed gradients, BatchNorm
+    running stats and the loss are held to the tolerances above."""
     import copy
 
     import numpy as np
@@ -1006,28 +1130,32 @@ def check_train_step_against_cpu(cfg_path: str) -> dict:
     from clipspm_tpu_torch.utils.config import load_config
     from clipspm_tpu_torch.weights import random_init_
 
+    n_eps, shot, queries = 1, 1, 1
     cfg = load_config(cfg_path, opts=[
-        "USE_AMP=false", "TRAIN.SHOT=1", "TRAIN.QUERY_PER_CLASS=1",
-        "TRAIN.TASKS_PER_BATCH=2"])
+        *opts, "USE_AMP=false", f"TRAIN.SHOT={shot}",
+        f"TRAIN.QUERY_PER_CLASS={queries}", "TRAIN.TASKS_PER_BATCH=2"])
     way, T = int(cfg.TRAIN.WAY), int(cfg.DATA.SEQ_LEN)
     base = random_init_(build_model(cfg), torch.Generator().manual_seed(4))
-    text = torch.randn(len(cfg.TRAIN.CLASS_NAME), base.arch.embed_dim,
+    width = base.arch.embed_dim if hasattr(base, "arch") else 1
+    text = torch.randn(len(cfg.TRAIN.CLASS_NAME), width,
                        generator=torch.Generator().manual_seed(5))
     rng = np.random.default_rng(6)
     eps = []
-    for _ in range(2):
+    for _ in range(n_eps):
         classes = rng.choice(len(cfg.TRAIN.CLASS_NAME), way,
                              replace=False).astype(np.int32)
-        lab = rng.permutation(way).astype(np.int32)
+        lab = rng.permutation(np.repeat(np.arange(way), shot)).astype(
+            np.int32)
+        tgt = rng.permutation(np.repeat(np.arange(way), queries)).astype(
+            np.int32)
         eps.append(Episode(
-            support_images=rng.integers(0, 256, (way, T, SPLIT_PX, SPLIT_PX,
-                                                 3), dtype=np.uint8),
+            support_images=rng.integers(0, 256, (way * shot, T, SPLIT_PX,
+                                                 SPLIT_PX, 3), dtype=np.uint8),
             support_labels=lab,
-            target_images=rng.integers(0, 256, (way, T, SPLIT_PX, SPLIT_PX,
-                                                3), dtype=np.uint8),
-            target_labels=np.arange(way, dtype=np.int32),
-            real_support_labels=classes[lab],
-            real_target_labels=classes, batch_class_list=classes))
+            target_images=rng.integers(0, 256, (way * queries, T, SPLIT_PX,
+                                                SPLIT_PX, 3), dtype=np.uint8),
+            target_labels=tgt, real_support_labels=classes[lab],
+            real_target_labels=classes[tgt], batch_class_list=classes))
 
     def step(dev, dtype):
         def center(images, *, train, gen=None, **kw):
@@ -1073,9 +1201,10 @@ def check_train_step_against_cpu(cfg_path: str) -> dict:
         return float((a - b).norm() / b.norm())
 
     def limit(cpu_err):
-        return max(TRAIN_CHECK_FACTOR * cpu_err, TRAIN_CHECK_FLOOR)
+        return max(check["factor"] * cpu_err, TRAIN_CHECK_FLOOR)
 
     g, c, r = card["grads"], cpu["grads"], ref["grads"]
+    zero_grad = check["zero_grad"]
     largest = max(float(v.norm()) for v in r.values())
     rows, bad = [], []
     for k in r:
@@ -1083,7 +1212,7 @@ def check_train_step_against_cpu(cfg_path: str) -> dict:
             if g[k].any() or c[k].any():
                 bad.append(f"{k}: no gradient in fp64, some in fp32")
             continue
-        if k in ZERO_GRAD:
+        if k in zero_grad:
             err = max(float((x[k] - r[k]).norm()) for x in (g, c)) / largest
             if err > 1e-5:
                 bad.append(f"{k} (zero in exact arithmetic) {err:.3e}")
@@ -1092,16 +1221,18 @@ def check_train_step_against_cpu(cfg_path: str) -> dict:
         rows.append((err / max(cpu_err, TRAIN_CHECK_FLOOR), err, cpu_err, k))
         if err > limit(cpu_err):
             bad.append(f"{k} {err:.3e} (CPU fp32 {cpu_err:.3e})")
-    names = [k for k in r if k not in ZERO_GRAD and r[k].any()]
+    names = [k for k in r if k not in zero_grad and r[k].any()]
     flat = lambda d: torch.cat([d[k].flatten() for k in names])  # noqa
     total, cpu_total = rel(flat(g), flat(r)), rel(flat(c), flat(r))
-    stats = {x: max(rel(d["stats"][k], v) for k, v in ref["stats"].items())
+    stats = {x: max((rel(d["stats"][k], v) for k, v in ref["stats"].items()),
+                    default=0.0)
              for x, d in (("card", card), ("cpu", cpu))}
     loss = {x: abs(d["loss"] - ref["loss"]) / abs(ref["loss"])
             for x, d in (("card", card), ("cpu", cpu))}
     rows.sort(reverse=True)
     by_err = sorted(rows, key=lambda row: -row[1])
-    out = {"episodes": 2, "frames_per_episode": 2 * way * T,
+    out = {"episodes": n_eps,
+           "frames_per_episode": way * (shot + queries) * T,
            "grad_tensors": len(rows),
            "grad_rel_l2_vs_fp64_all": {"card": total, "cpu": cpu_total},
            "grad_rel_l2_vs_fp64_median": {
@@ -1110,7 +1241,7 @@ def check_train_step_against_cpu(cfg_path: str) -> dict:
            "grad_worst_card_to_cpu": [[k, q, e, ce]
                                       for q, e, ce, k in rows[:6]],
            "grad_worst_card": [[k, e, ce] for _, e, ce, k in by_err[:6]],
-           "grad_factor": TRAIN_CHECK_FACTOR,
+           "grad_factor": check["factor"],
            "grad_floor": TRAIN_CHECK_FLOOR,
            "bn_running_stats_rel_max_vs_fp64": stats,
            "loss_rel_vs_fp64": loss, "loss_fp64": ref["loss"],
@@ -1129,13 +1260,14 @@ def check_train_step_against_cpu(cfg_path: str) -> dict:
     return out
 
 
-def phase_train_path() -> dict:
+def phase_train_path(name: str) -> dict:
     from clipspm_tpu_torch.cli.run import main as cli_main
     from clipspm_tpu_torch.utils.config import load_config
 
-    spec, run = PATHS["clipspm"], TRAIN_RUN
+    run = TRAIN_PATHS[name]
+    spec = PATHS[run["eval_path"]]
     counters = _counters()
-    log("train path clipspm-train: frames come from the same seeded uint8 "
+    log(f"train path {name}: frames come from the same seeded uint8 "
         "source after the decode stage as the eval paths")
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -1144,17 +1276,21 @@ def phase_train_path() -> dict:
         write_split(root, spec["frame_dir"], spec["split_dir"],
                     run["train_classes"], run["train_videos"], SPLIT_FRAMES,
                     SPLIT_PX, mode="train")
-        log(f"train path: wrote {run['train_classes'] * run['train_videos']}"
-            f" train and {spec['classes'] * spec['videos']} test videos in "
+        log(f"train path {name}: wrote "
+            f"{run['train_classes'] * run['train_videos']} train and "
+            f"{spec['classes'] * spec['videos']} test videos in "
             f"{time.perf_counter() - t0:.1f} s")
         ckpt = os.path.join(root, "ckpt")
         flags = ["--cfg", spec["cfg"], "--splits-root", root]
-        opts = [f"DATA.DATA_DIR={root}", f"CHECKPOINT.CHECKPOINT_DIR={ckpt}"]
-        train_opts = [*opts, f"TRAIN.TRAIN_EPISODES={run['episodes']}",
-                      f"TRAIN.VAL_FREQ={run['val_freq']}",
-                      f"TRAIN.PRINT_FREQ={run['print_freq']}",
-                      f"TEST.TEST_EPISODES={run['val_episodes']}",
-                      f"CHECKPOINT.SAVE_FREQ={run['save_freq']}"]
+        opts = [*spec["opts"], f"DATA.DATA_DIR={root}",
+                f"CHECKPOINT.CHECKPOINT_DIR={ckpt}"]
+        train_opts = [*opts, "TEST.ONLY_TEST=false",
+                      f"TRAIN.TRAIN_EPISODES={TRAIN_EPISODES}",
+                      f"TRAIN.VAL_FREQ={VAL_FREQ}",
+                      f"TRAIN.PRINT_FREQ={PRINT_FREQ}",
+                      f"TEST.TEST_EPISODES={VAL_EPISODES}",
+                      f"CHECKPOINT.SAVE_FREQ={SAVE_FREQ}"]
+        stage_seconds = {}
         rec = _TrainRecorder()
         _fresh_peak()
         with rec.installed():
@@ -1163,10 +1299,12 @@ def phase_train_path() -> dict:
             res = cli_main([*flags, "--allow-random-weights", *train_opts])
             wall = time.perf_counter() - t0
             train_launches = _read_counters(counters)
+        stage_seconds["cli"] = wall
         peak = torch.cuda.max_memory_allocated()
         learner, val_launches = rec.learner, rec.val_launches
         build_seconds = learner.build_seconds
         cfg = load_config(spec["cfg"], opts=train_opts, splits_root=root)
+        tpb = learner.tasks_per_batch
 
         recs = _read_jsonl(os.path.join(ckpt, "metrics.jsonl"))
         losses = [r["value"] for r in recs
@@ -1176,28 +1314,33 @@ def phase_train_path() -> dict:
             stalls = [float(x) for x in
                       re.findall(r"host-stall (\d+)%", f.read())]
         steps = [(n, a.elapsed_time(b) / 1e3) for n, a, b in rec.steps]
-        want_steps = [16, 16, 16, 8]
-        if [n for n, _ in steps] != want_steps or len(losses) != 4 \
+        want_steps = [tpb] * (TRAIN_EPISODES // tpb)
+        if TRAIN_EPISODES % tpb:
+            want_steps.append(TRAIN_EPISODES % tpb)
+        if [n for n, _ in steps] != want_steps \
+                or len(losses) != len(want_steps) \
                 or not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"train path: steps {steps}, losses "
+            raise AssertionError(f"train path {name}: steps {steps}, losses "
                                  f"{losses}")
-        if res["episodes"] != run["episodes"]:
-            raise AssertionError(f"train path ran {res['episodes']} episodes")
-        # K1: 3 fused launches an episode (its backward launches none);
-        # K2: none, the clipspm head runs no soft-DTW
-        want = {"train": {"K1": 3 * run["episodes"], "K2": 0},
-                "val": [{"K1": 3 * run["val_episodes"], "K2": 0}]}
+        if res["episodes"] != TRAIN_EPISODES:
+            raise AssertionError(f"train path {name} ran {res['episodes']} "
+                                 "episodes")
+        per = run["launches"]
+        want = {"train": {k: n * TRAIN_EPISODES for k, n in per.items()},
+                "val": [{k: n * VAL_EPISODES for k, n in per.items()}]}
         if train_launches != want["train"] or val_launches != want["val"]:
-            raise AssertionError(f"launches {train_launches} in training and "
-                                 f"{val_launches} in validation; expected "
-                                 f"{want}")
-        for tag in ("best", f"iter_{run['save_freq']}"):
+            raise AssertionError(f"{name}: launches {train_launches} in "
+                                 f"training and {val_launches} in "
+                                 f"validation; expected {want}")
+        for tag in ("best", f"iter_{SAVE_FREQ}"):
             if not os.path.isfile(os.path.join(ckpt, f"checkpoint_{tag}",
                                                "checkpoint.pt")):
-                raise AssertionError(f"no checkpoint_{tag}")
+                raise AssertionError(f"{name}: no checkpoint_{tag}")
 
+        t0 = time.perf_counter()
         profile = profile_train_step(learner, cfg)
-        log(json.dumps({"train_profile": profile}))
+        stage_seconds["profile"] = time.perf_counter() - t0
+        log(json.dumps({"train_profile": {"path": name, **profile}}))
         del learner, rec
 
         # ONLY_TEST from checkpoint_best: the restored state is the saved
@@ -1210,28 +1353,31 @@ def phase_train_path() -> dict:
             _zero_counters(counters)
             t0 = time.perf_counter()
             test_res = cli_main([*flags, *opts, "TEST.ONLY_TEST=true",
-                                 f"TEST.TEST_EPISODES={run['val_episodes']}",
+                                 f"TEST.TEST_EPISODES={VAL_EPISODES}",
                                  f"TEST.TEST_MODEL_PATH={best}"])
             test_wall = time.perf_counter() - t0
             test_launches = _read_counters(counters)
+        stage_seconds["only_test"] = test_wall
         restored = test_rec.learner.model.state_dict()
         if set(restored) != set(saved["model"]) or not all(
                 torch.equal(restored[k].cpu(), v)
                 for k, v in saved["model"].items()):
-            raise AssertionError("ONLY_TEST's restored state_dict differs "
-                                 "from checkpoint_best's")
+            raise AssertionError(f"{name}: ONLY_TEST's restored state_dict "
+                                 "differs from checkpoint_best's")
         if test_launches != want["val"][0]:
-            raise AssertionError(f"launches {test_launches} in the ONLY_TEST "
-                                 f"run; expected {want['val'][0]}")
+            raise AssertionError(f"{name}: launches {test_launches} in the "
+                                 f"ONLY_TEST run; expected {want['val'][0]}")
         del test_rec
-    check = check_train_step_against_cpu(spec["cfg"])
+    t0 = time.perf_counter()
+    check = check_train_step_against_cpu(spec["cfg"], spec["opts"],
+                                         run["check"])
+    stage_seconds["check"] = time.perf_counter() - t0
     rate_steps = steps[1:]
-    out = {"path": "clipspm-train", "episodes": res["episodes"],
+    out = {"path": name, "episodes": res["episodes"],
            "step_losses": losses, "step_episodes": [n for n, _ in steps],
            "step_device_seconds": [s for _, s in steps],
-           "train_episodes_per_s_steps_2_4":
+           f"train_episodes_per_s_steps_2_{len(steps)}":
                sum(n for n, _ in rate_steps) / sum(s for _, s in rate_steps),
-           "seconds_per_optimizer_step_2_3": [s for _, s in steps[1:3]],
            "host_stall_pct_per_log_line": stalls,
            "peak_memory_bytes": peak, "cli_seconds": wall,
            "build_seconds": build_seconds,
@@ -1243,27 +1389,37 @@ def phase_train_path() -> dict:
            "only_test_accuracy": test_res["accuracy"],
            "only_test_seconds": test_wall,
            "checkpoint_round_trip": "bit-equal",
+           "stage_seconds": stage_seconds,
            "train_step_vs_cpu": check}
     log(json.dumps({"train_path": out}))
     return out
 
 
 def main() -> int:
-    device = phase_device()
-    phase_build()
-    k1 = phase_k1()
-    k2 = phase_k2()
-    clipspm = phase_main_path("clipspm")
-    ta2n = phase_main_path("ta2n")
-    train = phase_train_path()
-    k1["launches"] = clipspm["launches"]["K1"]
-    k1["launches_by_path"] = {"clipspm": clipspm["launches"]["K1"],
-                              "ta2n": ta2n["launches"]["K1"],
-                              "clipspm-train": train["launches"]["K1_train"]}
-    k2["launches"] = ta2n["launches"]["K2"]
-    k2["launches_by_path"] = {"clipspm": clipspm["launches"]["K2"],
-                              "ta2n": ta2n["launches"]["K2"],
-                              "clipspm-train": train["launches"]["K2_train"]}
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[phase] = time.perf_counter() - t0
+
+    device = timed("device", phase_device)
+    timed("build", phase_build)
+    k1 = timed("K1", phase_k1)
+    k2 = timed("K2", phase_k2)
+    evals = {name: timed(name, phase_main_path, name) for name in PATHS}
+    trains = {name: timed(name, phase_train_path, name)
+              for name in TRAIN_PATHS}
+    log(json.dumps({"phase_seconds": seconds}))
+    for k, entry in (("K1", k1), ("K2", k2)):
+        entry["launches_by_path"] = {
+            **{name: r["launches"][k] for name, r in evals.items()},
+            **{name: r["launches"][f"{k}_train"]
+               for name, r in trains.items()}}
+    k1["launches"] = evals["clipspm"]["launches"]["K1"]
+    k2["launches"] = evals["ta2n"]["launches"]["K2"]
     log(json.dumps({"kernels": [k1, k2]}))
     log(json.dumps({"ok": True, "device": device}))
     return 0

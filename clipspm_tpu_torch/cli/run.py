@@ -11,10 +11,11 @@ visible the run raises rather than carrying on on the CPU). With
 through the feature cache every ``TRAIN.VAL_FREQ`` episodes and saving
 ``checkpoint_best`` and ``checkpoint_iter_N``; with ``TEST.ONLY_TEST=true``
 it restores ``TEST.TEST_MODEL_PATH`` or ``checkpoint_best`` (when present)
-and runs the ``TEST.CACHE_FEATURES`` test protocol. What the port does not
-carry yet (training a head other than clipspm, the uncached evaluator,
-several GPUs) raises ``NotImplementedError`` naming its ROADMAP item before
-anything is built.
+and runs the ``TEST.CACHE_FEATURES`` test protocol. It trains and tests the
+ported heads, clipspm (RN50 and ViT towers) and ta2n. What the port does not
+carry yet (the other heads, the uncached evaluator, several GPUs, the remat
+policies ``attn`` and ``mlp``) raises ``NotImplementedError`` naming its
+ROADMAP item before anything is built.
 """
 
 from __future__ import annotations
@@ -50,17 +51,16 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _refuse_what_is_not_carried(cfg) -> None:
+    from clipspm_tpu_torch.models.fsar import check_model_config
     from clipspm_tpu_torch.train.setup import check_num_chips
 
     check_num_chips(cfg)
+    check_model_config(cfg)
     cached = bool(cfg.TEST.get("CACHE_FEATURES", False))
     if cfg.TEST.ONLY_TEST:
         if not cached:
             raise _not_ported("the uncached evaluator", "uncached evaluator")
         return
-    if cfg.MODEL.NAME != "clipspm":
-        raise _not_ported(f"training {cfg.MODEL.NAME!r}",
-                          f"{cfg.MODEL.NAME} training")
     val_freq = int(cfg.TRAIN.VAL_FREQ or 0)
     if not cached and val_freq and val_freq < int(cfg.TRAIN.TRAIN_EPISODES):
         raise _not_ported("validation through the uncached evaluator",

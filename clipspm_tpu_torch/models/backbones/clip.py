@@ -1,5 +1,5 @@
-"""CLIP backbones in PyTorch: the RN50-family ModifiedResNet visual tower and
-the causal text transformer.
+"""CLIP backbones in PyTorch: the RN50-family ModifiedResNet and the
+ViT visual towers, and the causal text transformer.
 
 Port of ``clipspm_tpu/models/backbones/clip.py``. Modules and parameters
 carry OpenAI's state-dict key names (``visual.layer1.0.conv1.weight``,
@@ -7,7 +7,11 @@ carry OpenAI's state-dict key names (``visual.layer1.0.conv1.weight``,
 loads straight into them. Frames are NHWC ``[N, H, W, 3]`` at the public
 functions and NCHW only inside the tower (the permuted view keeps NHWC
 strides, which cuDNN runs as channels-last). LayerNorm and BatchNorm compute
-in fp32 whatever the compute dtype. The ViT tower waits for a later slice.
+in fp32 whatever the compute dtype. The vision transformer's attention is one
+``scaled_dot_product_attention`` call (on the card a fused flash or
+memory-efficient kernel; the JAX package has no attention kernel, XLA fuses
+its einsums); the text tower's causal attention is spelled out as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -84,15 +88,17 @@ class FP32LayerNorm(nn.LayerNorm):
         return super().forward(fp32_or_wider(x)).to(x.dtype)
 
 
-class FP32BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm computed in fp32 (its output stays fp32; fp64 stays fp64).
+class FP32BatchNorm:
+    """BatchNorm computed in fp32 (its output stays fp32; fp64 stays fp64),
+    mixed into ``nn.BatchNorm2d`` and ``nn.BatchNorm3d``.
 
     In train mode the running variance takes the *biased* batch variance,
-    as flax's ``nn.BatchNorm`` does (momentum 0.9 there is 0.1 here).
-    ``nn.BatchNorm2d`` folds in the unbiased one, ``n / (n - 1)`` times
-    larger. So the op updates a copy of the ``[C]`` buffer (the copy is
-    what its backward keeps), and the buffer takes the corrected value: the
-    batch statistics stay one fused pass."""
+    as flax's ``nn.BatchNorm`` does (momentum 0.9 there is 0.1 here), over
+    ``n`` = every element of a channel (``N*H*W``, ``N*T*H*W``). torch's
+    BatchNorm folds in the unbiased one, ``n / (n - 1)`` times larger. So
+    the op updates a copy of the ``[C]`` buffer (the copy is what its
+    backward keeps), and the buffer takes the corrected value: the batch
+    statistics stay one fused pass."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = fp32_or_wider(x)
@@ -109,6 +115,10 @@ class FP32BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(
                 var - (var - (1.0 - self.momentum) * self.running_var) / n)
         return y
+
+
+class FP32BatchNorm2d(FP32BatchNorm, nn.BatchNorm2d):
+    """BatchNorm over ``[N, C, H, W]`` (:class:`FP32BatchNorm`)."""
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -242,13 +252,18 @@ class _Attention(nn.Module):
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(B, L, self.n_head, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
-        attn = torch.matmul(q, k.transpose(-1, -2)).float() * hd ** -0.5
         if self.causal:
+            attn = fp32_or_wider(torch.matmul(q, k.transpose(-1, -2))) \
+                * hd ** -0.5
             mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
             attn = attn.masked_fill(~mask, float("-inf"))
-        attn = torch.softmax(attn, dim=-1).to(v.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, L, D)
-        return self.out_proj(out)
+            attn = torch.softmax(attn, dim=-1).to(v.dtype)
+            out = torch.matmul(attn, v)
+        else:
+            # the tensor the ``attn_out`` remat policy keeps
+            # (models/visual.py), as the JAX package tags it
+            out = F.scaled_dot_product_attention(q, k, v)
+        return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
 
 
 class QuickGELU(nn.Module):
@@ -285,15 +300,49 @@ class TransformerStack(nn.Module):
         return self.resblocks(x)
 
 
+class VisionTransformer(nn.Module):
+    """Patch conv (no bias, stride = patch) -> class token first, then the
+    positional embedding -> ``ln_pre`` -> pre-LN transformer -> ``ln_post``
+    on token 0 -> ``@ proj`` (no bias)."""
+
+    def __init__(self, input_resolution: int, patch_size: int, width: int,
+                 layers: int, heads: int, output_dim: int):
+        super().__init__()
+        grid = input_resolution // patch_size
+        self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size,
+                               bias=False)
+        self.class_embedding = nn.Parameter(torch.zeros(width))
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(grid * grid + 1, width))
+        self.ln_pre = FP32LayerNorm(width, eps=1e-5)
+        self.transformer = TransformerStack(width, layers, heads)
+        self.ln_post = FP32LayerNorm(width, eps=1e-5)
+        self.proj = nn.Parameter(torch.zeros(width, output_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``: ``[N, H, W, 3]`` -> ``[N, output_dim]``."""
+        x = self.conv1(x.permute(0, 3, 1, 2))               # [N, C, gh, gw]
+        N, C = x.shape[:2]
+        x = x.flatten(2).transpose(1, 2)                    # [N, gh*gw, C]
+        cls = self.class_embedding.to(x.dtype).expand(N, 1, C)
+        x = torch.cat([cls, x], dim=1) \
+            + self.positional_embedding[None].to(x.dtype)
+        x = self.transformer(self.ln_pre(x))
+        x = self.ln_post(x[:, 0])
+        return x @ self.proj.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Full CLIP
 # ---------------------------------------------------------------------------
 
-def make_clip_visual(arch: CLIPArch) -> ModifiedResNet:
+def make_clip_visual(arch: CLIPArch) -> nn.Module:
     if arch.is_vit:
-        raise NotImplementedError(
-            "the ViT visual tower is not ported yet (ROADMAP.md, open item "
-            "'ViT-B/16'); the port runs the RN-family ModifiedResNet")
+        return VisionTransformer(
+            input_resolution=arch.image_resolution,
+            patch_size=arch.vision_patch_size, width=arch.vision_width,
+            layers=arch.vision_layers, heads=arch.vision_heads,
+            output_dim=arch.embed_dim)
     return ModifiedResNet(layers=arch.vision_layers, output_dim=arch.embed_dim,
                           heads=arch.vision_heads,
                           input_resolution=arch.image_resolution,

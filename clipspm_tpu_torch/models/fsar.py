@@ -19,7 +19,8 @@ from .backbones.clip import CLIP_ARCHS, CLIPArch
 from .backbones.resnet import RESNET_LAYERS
 from .heads.clipspm import CLIPSPM
 from .heads.ta2n import TA2NModel
-from .visual import compute_autocast, encode_chunked, make_clip_visual
+from .visual import (check_remat_policy, compute_autocast, encode_chunked,
+                     make_clip_visual)
 
 
 class CLIPSPMModel(nn.Module):
@@ -38,11 +39,16 @@ class CLIPSPMModel(nn.Module):
 
     def __init__(self, arch: CLIPArch, way: int, shot: int,
                  spm: Mapping[str, float], single_direct: bool = False,
-                 encode_chunk: int = 0,
+                 encode_chunk: int = 0, train_encode_chunk: int = 0,
+                 train_remat_policy: str = "attn_out",
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.arch = arch
+        # frames per tower call in evaluation; in training (a ViT tower
+        # only) frames per rematerialised chunk: 0 off, 1 the eval width
         self.encode_chunk = encode_chunk
+        self.train_encode_chunk = train_encode_chunk
+        self.train_remat_policy = train_remat_policy
         self.compute_dtype = compute_dtype
         self.backbone = make_clip_visual(arch)
         self.head = CLIPSPM(dim=arch.embed_dim, way=way, shot=shot, spm=spm,
@@ -67,7 +73,9 @@ class CLIPSPMModel(nn.Module):
         N, T = images.shape[:2]
         flat = images.reshape((N * T,) + tuple(images.shape[2:]))
         with compute_autocast(images.device, self.compute_dtype):
-            feats = encode_chunked(self.backbone, flat, self.encode_chunk)
+            feats = encode_chunked(self.backbone, flat, self.encode_chunk,
+                                   self.train_encode_chunk,
+                                   self.train_remat_policy)
         return feats.reshape(N, T, feats.shape[-1])
 
     def match_features(self, su, qu, support_labels, real_support_labels,
@@ -82,28 +90,37 @@ class CLIPSPMModel(nn.Module):
                              target_context)
 
 
-def build_model(cfg) -> nn.Module:
-    """Construct the model named by ``cfg.MODEL.NAME``: ``clipspm`` or
-    ``ta2n``; the other heads raise ``NotImplementedError``.
-    ``MODEL.OTAM_BACKEND`` is not read (on a GPU the OTAM DP is always
-    kernel K1, the soft-DTW DP kernel K2)."""
+PORTED_MODELS = ("clipspm", "ta2n")
+
+
+def check_model_config(cfg) -> None:
+    """Raise for a model config the port does not build, before anything
+    is built: a head other than ``PORTED_MODELS`` or a JAX-package
+    numerics knob (``NotImplementedError``, naming the ROADMAP item), a
+    remat policy the port does not honour, a train chunk on a BatchNorm
+    backbone (``ValueError``, as the JAX package raises it)."""
     name = cfg.MODEL.NAME
-    if name not in ("clipspm", "ta2n"):
+    if name not in PORTED_MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md, open items "
             "'the other CLIP heads' and 'the remaining ResNet heads'); the "
-            "port builds 'clipspm' and 'ta2n'")
+            f"port builds {PORTED_MODELS}")
     for knob in ("FAST_SOFTMAX", "BF16_NORMS", "INT8_EVAL"):
         if cfg.MODEL.get(knob, False):
             raise NotImplementedError(
                 f"MODEL.{knob} is a JAX-package numerics option the port "
                 "does not carry")
-    backbone = cfg.MODEL.BACKBONE
-    chunk_cfg = cfg.MODEL.get("ENCODE_CHUNK", None)
-    if chunk_cfg is True:
-        chunk = 30
-    else:
-        chunk = int(chunk_cfg or 0)
+    _chunking(cfg.MODEL, cfg.MODEL.BACKBONE)
+
+
+def build_model(cfg) -> nn.Module:
+    """Construct the model named by ``cfg.MODEL.NAME``: ``clipspm`` or
+    ``ta2n``; what ``check_model_config`` refuses raises.
+    ``MODEL.OTAM_BACKEND`` is not read (on a GPU the OTAM DP is always
+    kernel K1, the soft-DTW DP kernel K2)."""
+    check_model_config(cfg)
+    name, backbone = cfg.MODEL.NAME, cfg.MODEL.BACKBONE
+    chunk, train_chunk, remat_policy = _chunking(cfg.MODEL, backbone)
     compute_dtype = (torch.bfloat16 if cfg.get("USE_AMP", False) else None)
     way, shot = int(cfg.TRAIN.WAY), int(cfg.TRAIN.SHOT)
     if name == "ta2n":
@@ -124,4 +141,38 @@ def build_model(cfg) -> nn.Module:
     return CLIPSPMModel(
         arch=CLIP_ARCHS[backbone], way=way, shot=shot, spm=dict(cfg.params),
         single_direct=bool(cfg.MODEL.get("SINGLE_DIRECT", False)),
-        encode_chunk=chunk, compute_dtype=compute_dtype)
+        encode_chunk=chunk, train_encode_chunk=train_chunk,
+        train_remat_policy=remat_policy, compute_dtype=compute_dtype)
+
+
+def _chunking(m, backbone: str):
+    """``(ENCODE_CHUNK, TRAIN_ENCODE_CHUNK, TRAIN_REMAT_POLICY)`` with the
+    JAX package's defaults (``clipspm_tpu/models/fsar.py:build_model``): a
+    full-size CLIP ViT encodes 30 frames a call in evaluation and trains in
+    rematerialised chunks of 40 keeping the attention outputs; every other
+    backbone encodes in one call. ``ENCODE_CHUNK: true`` is 30;
+    ``TRAIN_ENCODE_CHUNK: true`` reuses the eval width, or 40 when that is
+    0; a train chunk on a BatchNorm backbone raises ``ValueError``."""
+    is_vit = backbone in CLIP_ARCHS and CLIP_ARCHS[backbone].is_vit
+    is_full_vit = is_vit and backbone != "test-tiny"
+    chunk_cfg = m.get("ENCODE_CHUNK", None)
+    if chunk_cfg is None:
+        chunk = 30 if is_full_vit else 0
+    elif chunk_cfg is True:
+        chunk = 30
+    else:
+        chunk = int(chunk_cfg or 0)
+    tec_cfg = m.get("TRAIN_ENCODE_CHUNK", None)
+    train_chunk = (40 if is_full_vit else 0) if tec_cfg is None else int(
+        tec_cfg or 0)
+    if train_chunk == 1 and not chunk:
+        train_chunk = 40
+    if train_chunk and not is_vit:
+        raise ValueError(
+            "MODEL.TRAIN_ENCODE_CHUNK requires a CLIP ViT backbone: "
+            f"{backbone!r} has BatchNorm batch statistics, which per-chunk "
+            "training would compute per chunk instead of per episode")
+    remat_policy = str(m.get("TRAIN_REMAT_POLICY", "attn_out") or "attn_out")
+    if train_chunk:
+        check_remat_policy(remat_policy)
+    return chunk, train_chunk, remat_policy

@@ -33,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.softdtw import softdtw
+from ...utils.precision import fp32_or_wider
+from ..backbones.clip import FP32BatchNorm
 from ..backbones.resnet import TorchResNet
 from ..blocks import group_by_class
 from ..visual import compute_autocast, encode_chunked
@@ -43,11 +45,9 @@ _PERTURB = np.asarray([[0, 0], [0, 1], [1, 0], [0, -1], [-1, 0],
                       dtype=np.float32) * 0.2
 
 
-class FP32BatchNorm3d(nn.BatchNorm3d):
-    """BatchNorm computed in fp32 (its output stays fp32)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+class FP32BatchNorm3d(FP32BatchNorm, nn.BatchNorm3d):
+    """BatchNorm over ``[N, C, T, H, W]`` in fp32, with flax's biased
+    running variance over ``N*T*H*W`` (``backbones/clip.py``)."""
 
 
 def _no_autocast(t: torch.Tensor):
@@ -172,8 +172,8 @@ class ACM(nn.Module):
         values = self.valuenet(qu_t)                     # [m, T, C]
         su_v = self.valuenet(su_t)
         with _no_autocast(support):
-            attn = torch.einsum("nxc,myc->nmxy", keys.float(),
-                                querys.float()) / (C ** 0.5)
+            attn = torch.einsum("nxc,myc->nmxy", fp32_or_wider(keys),
+                                fp32_or_wider(querys)) / (C ** 0.5)
             attn = torch.softmax(attn, dim=-1).to(support.dtype)
             aligned = torch.einsum("nmxy,myc->nmxc", attn,
                                    values.to(attn.dtype))
@@ -206,11 +206,11 @@ class ACM(nn.Module):
         # the masked sums accumulate in fp32, as the JAX package's do
         with _no_autocast(support):
             su_pooled = torch.einsum("nmthw,nthwc->nmtc",
-                                     pooled_mask(off_p).float(),
-                                     support_projed.float())
+                                     fp32_or_wider(pooled_mask(off_p)),
+                                     fp32_or_wider(support_projed))
             qu_pooled = torch.einsum("nmthw,nmthwc->nmtc",
-                                     pooled_mask(-off_p).float(),
-                                     query_aligned.float())
+                                     fp32_or_wider(pooled_mask(-off_p)),
+                                     fp32_or_wider(query_aligned))
         pairs = torch.cat([su_pooled, qu_pooled], dim=-1)
         return pairs, offsets
 
@@ -259,22 +259,31 @@ class TA2NModel(nn.Module):
     def forward(self, support_images, target_images, support_labels,
                 real_support_labels=None, real_target_labels=None,
                 text_train=None, text_test=None) -> Dict[str, torch.Tensor]:
+        """One trunk call over support and query frames; TTM on the support
+        videos, then on the query videos (in train mode its BatchNorm
+        statistics update twice, in that order, as in the JAX package)."""
         S, Q = support_images.shape[0], target_images.shape[0]
-        feats = self.encode(torch.cat([support_images, target_images], dim=0))
-        return self.match_features(feats[:S], feats[S:S + Q], support_labels,
+        with compute_autocast(support_images.device, self.compute_dtype):
+            fmap = self._trunk(torch.cat([support_images, target_images]))
+            su, qu = self.ttm(fmap[:S]), self.ttm(fmap[S:S + Q])
+        return self.match_features(su, qu, support_labels,
                                    real_support_labels, real_target_labels,
                                    text_train, text_test)
+
+    def _trunk(self, images: torch.Tensor) -> torch.Tensor:
+        """``[N, T, H, W, 3]`` frames -> ``[N, T, h, w, D]`` trunk maps
+        after dropout (call under the compute autocast)."""
+        N, T = images.shape[:2]
+        flat = images.reshape((N * T,) + tuple(images.shape[2:]))
+        fmap = self.feat_dropout(encode_chunked(self.backbone, flat,
+                                                self.encode_chunk))
+        return fmap.reshape((N, T) + tuple(fmap.shape[1:]))
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         """``[N, T, H, W, 3]`` frames -> ``[N, T, h, w, D]`` TTM-aligned
         spatial maps: backbone -> dropout -> per-video temporal transform."""
-        N, T = images.shape[:2]
-        flat = images.reshape((N * T,) + tuple(images.shape[2:]))
         with compute_autocast(images.device, self.compute_dtype):
-            fmap = encode_chunked(self.backbone, flat, self.encode_chunk)
-            fmap = self.feat_dropout(fmap)
-            vids = fmap.reshape((N, T) + tuple(fmap.shape[1:]))
-            return self.ttm(vids)
+            return self.ttm(self._trunk(images))
 
     def _insupport_align(self, support: torch.Tensor) -> torch.Tensor:
         """Multi-shot prototype fusion.
@@ -284,8 +293,8 @@ class TA2NModel(nn.Module):
         querys = self.querynet_multi(su_t[:, 0])         # [way, T, C]
         values = self.valuenet_multi(support)            # [way,k,T,H,W,C]
         with _no_autocast(support):
-            attn = torch.einsum("nkxc,nyc->nkxy", keys.float(),
-                                querys.float()) / (self.dim ** 0.5)
+            attn = torch.einsum("nkxc,nyc->nkxy", fp32_or_wider(keys),
+                                fp32_or_wider(querys)) / (self.dim ** 0.5)
             attn = torch.softmax(attn, dim=2).to(support.dtype)
             recon = torch.einsum("nkxy,nkxhwc->nkyhwc", attn,
                                  values.to(attn.dtype))
@@ -316,16 +325,19 @@ class TA2NModel(nn.Module):
             if self.metric == "otam":
                 # soft-DTW with the full wrapper semantics (cos distance,
                 # query-axis zero-padding, forward/reverse averaging)
-                dist = softdtw(qu_al.reshape(self.way * Q, T, D).float(),
-                               su_al.reshape(self.way * Q, T, D).float(),
-                               gamma=0.1).reshape(self.way, Q)
+                dist = softdtw(
+                    fp32_or_wider(qu_al.reshape(self.way * Q, T, D)),
+                    fp32_or_wider(su_al.reshape(self.way * Q, T, D)),
+                    gamma=0.1).reshape(self.way, Q)
             else:
                 sn = su_al / torch.linalg.vector_norm(
-                    su_al.float(), dim=-1, keepdim=True).clamp_min(1e-12)
+                    fp32_or_wider(su_al), dim=-1,
+                    keepdim=True).clamp_min(1e-12)
                 qn = qu_al / torch.linalg.vector_norm(
-                    qu_al.float(), dim=-1, keepdim=True).clamp_min(1e-12)
+                    fp32_or_wider(qu_al), dim=-1,
+                    keepdim=True).clamp_min(1e-12)
                 dist = (1 - (sn * qn).sum(-1)).sum(-1)   # [way, Q]
             logits = (-dist).T                           # [Q, way]
             if self.dist_norm:
-                logits = self.norm_layer(logits.float())
+                logits = self.norm_layer(fp32_or_wider(logits))
         return {"logits": logits[None]}

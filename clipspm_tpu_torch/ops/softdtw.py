@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import fp32_or_wider
+
 _BIG = 1e30  # finite stand-in for +inf: exp(-BIG/gamma) == 0, grads are 0
 
 
@@ -47,11 +49,12 @@ def softdtw_from_dists(D: torch.Tensor, gamma: float = 1.0,
         bandwidth: Sakoe-Chiba band; cells with ``|i - j| > bandwidth`` are
             pruned when > 0.
     Returns:
-        ``[...]`` soft-DTW values ``R[N, M]`` in fp32.
+        ``[...]`` soft-DTW values ``R[N, M]`` in fp32 (fp64 for fp64
+        tables).
     """
     batch_shape = D.shape[:-2]
     N, M = D.shape[-2], D.shape[-1]
-    out = _softdtw_wavefront(D.reshape(-1, N, M).to(torch.float32),
+    out = _softdtw_wavefront(fp32_or_wider(D.reshape(-1, N, M)),
                              float(gamma), float(bandwidth))
     return out.reshape(batch_shape)
 
@@ -61,8 +64,7 @@ def _softdtw_wavefront(D: torch.Tensor, gamma: float,
     """Wavefront over anti-diagonals ``k = i + j`` of the ``[B, N+1, M+1]``
     state: one step updates one diagonal of every table."""
     B, N, M = D.shape
-    R = torch.full((B, N + 1, M + 1), _BIG, dtype=torch.float32,
-                   device=D.device)
+    R = torch.full((B, N + 1, M + 1), _BIG, dtype=D.dtype, device=D.device)
     R[:, 0, 0] = 0.0
     iis = torch.arange(N + 1, device=D.device)[:, None]
     jjs = torch.arange(M + 1, device=D.device)[None, :]

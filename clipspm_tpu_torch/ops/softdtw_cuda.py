@@ -21,7 +21,11 @@ take raises before anything is built.
 
 Each gradient is a ``torch.autograd.Function`` whose backward replays the
 plain version under autograd, as the JAX custom VJP does
-(``softdtw_pallas.py:125-127``).
+(``softdtw_pallas.py:125-127``). Under autocast the forward takes fp32
+inputs with autocast off (``custom_fwd(cast_inputs=float32)``), and the
+backward runs with the forward's autocast state (``custom_bwd``), so the
+replay's cosine matmuls are fp32 whether ``loss.backward()`` is called
+inside an autocast block or outside one, as in ``ops/otam_cuda.py``.
 """
 
 from __future__ import annotations
@@ -130,14 +134,20 @@ def softdtw_cos_padded_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float,
     return out
 
 
+_fwd = torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
+_bwd = torch.amp.custom_bwd(device_type="cuda")
+
+
 class _SoftDTW(torch.autograd.Function):
     @staticmethod
+    @_fwd
     def forward(ctx, tables, gamma, bandwidth):
         ctx.save_for_backward(tables)
         ctx.gamma, ctx.bandwidth = gamma, bandwidth
         return softdtw_dp_cuda(tables, gamma, bandwidth)
 
     @staticmethod
+    @_bwd
     def backward(ctx, grad_out):
         (tables,) = ctx.saved_tensors
         with torch.enable_grad():
@@ -149,12 +159,14 @@ class _SoftDTW(torch.autograd.Function):
 
 class _SoftDTWCosPadded(torch.autograd.Function):
     @staticmethod
+    @_fwd
     def forward(ctx, x, y, gamma, bandwidth):
         ctx.save_for_backward(x, y)
         ctx.gamma, ctx.bandwidth = gamma, bandwidth
         return softdtw_cos_padded_cuda(x, y, gamma, bandwidth)
 
     @staticmethod
+    @_bwd
     def backward(ctx, grad_out):
         x, y = ctx.saved_tensors
         with torch.enable_grad():

@@ -34,10 +34,12 @@ from ..weights import random_init_
 from .learner import Learner
 
 # model files named as in the OpenAI release, with their SHA-256 digests
-_CLIP_FILES = {"RN50": "RN50.pt"}
+_CLIP_FILES = {"RN50": "RN50.pt", "ViT-B/16": "ViT-B-16.pt"}
 CLIP_CHECKPOINT_SHA256 = {
     "RN50.pt":
         "afeb0e10f9e5a86da6080e35cf09123aca3b358a0c3e3b6c78a7b63bc04b6762",
+    "ViT-B-16.pt":
+        "5806e77cd80f8b59890b7e101eabd078d9fb84e6937f9e85e4ecb61988df416f",
 }
 
 CLIP_HEADS = ("clipspm", "clipfsar", "cpm2c", "sten")
@@ -75,21 +77,30 @@ def _verify_sha256(path: str) -> None:
 
 
 def infer_arch_from_state_dict(sd) -> CLIPArch:
-    """RN-family architecture from an OpenAI state dict's shapes."""
+    """The CLIP architecture (ViT or RN family) from an OpenAI state
+    dict's shapes, as ``clipspm_tpu/models/backbones/torch_import.py``
+    infers it."""
     if "visual.proj" in sd:
-        raise NotImplementedError("ViT checkpoints wait for the ViT tower "
-                                  "(ROADMAP.md, open item 'ViT-B/16')")
-    counts = tuple(len({k.split(".")[2] for k in sd
-                        if k.startswith(f"visual.layer{b}")})
-                   for b in (1, 2, 3, 4))
-    out_width = round(
-        (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = len([k for k in sd if k.startswith("visual.")
+                             and k.endswith(".attn.in_proj_weight")])
+        patch = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = patch * grid
+    else:
+        vision_layers = tuple(len({k.split(".")[2] for k in sd
+                                   if k.startswith(f"visual.layer{b}")})
+                              for b in (1, 2, 3, 4))
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        patch = None
+        out_width = round(
+            (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = out_width * 32
     width = sd["ln_final.weight"].shape[0]
     return CLIPArch(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=out_width * 32, vision_layers=counts,
-        vision_width=sd["visual.layer1.0.conv1.weight"].shape[0],
-        vision_patch_size=None,
+        image_resolution=image_resolution, vision_layers=vision_layers,
+        vision_width=vision_width, vision_patch_size=patch,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         transformer_width=width, transformer_heads=max(1, width // 64),

@@ -12,7 +12,10 @@
   ``weight/bias/running_mean/running_var``, and ``resblock_i`` becomes
   ``resblocks.i``. The clipspm head's Conv1D kernel ``[3, in, out]`` becomes
   ``[out, in, 3]``, a Conv3d kernel ``[kt, kh, kw, in, out]`` becomes
-  ``[out, in, kt, kh, kw]``. The torchvision ResNet trunk takes
+  ``[out, in, kt, kh, kw]``. The ViT tower's patch kernel ``[p, p, 3, W]``
+  becomes ``[W, 3, p, p]``; its ``class_embedding``,
+  ``positional_embedding`` and ``proj`` carry across unchanged. The
+  torchvision ResNet trunk takes
   torchvision's keys (the inverse of ``clipspm_tpu/models/backbones/
   resnet.py:convert_torchvision_resnet``).
 """
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.backbones.clip import AttentionPool2d, CLIPModel, _Attention
+from .models.backbones.clip import (AttentionPool2d, CLIPModel,
+                                    VisionTransformer, _Attention)
 from .models.heads.ta2n import ACM, TTM
 
 StateDict = Dict[str, torch.Tensor]
@@ -45,7 +49,9 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """Initialise ``model`` (on the CPU) in place from ``gen``: Linear/Conv
     weights ``N(0, 1/fan_in)`` and zero biases (flax's lecun-normal
     default), norms at identity with running stats (0, 1), embeddings and
-    CLIP's extra parameters at the JAX package's scales, scalar gains at 1;
+    CLIP's extra parameters at the JAX package's scales (the ViT tower's
+    class and positional embeddings and ``proj`` at ``width**-0.5 N(0,
+    1)``), scalar gains at 1;
     TA2N's ``loc_fc2`` at a zero kernel and bias ``[2, 0]`` and ``mv_fc2``
     at zero, as the JAX package initialises them.
     """
@@ -66,6 +72,11 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(mod, AttentionPool2d):
             pe = mod.positional_embedding
             _normal_(pe, pe.shape[1] ** -0.5, gen)
+        elif isinstance(mod, VisionTransformer):
+            scale = mod.class_embedding.shape[0] ** -0.5
+            for p in (mod.class_embedding, mod.positional_embedding,
+                      mod.proj):
+                _normal_(p, scale, gen)
         if isinstance(mod, CLIPModel):
             _normal_(mod.positional_embedding, 0.01, gen)
             _normal_(mod.text_projection,
@@ -114,14 +125,39 @@ def _bn(p, stats, out: StateDict, key: str) -> None:
     out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
 
 
+def visual_state_dict(params: Mapping[str, Any], stats: Mapping[str, Any],
+                      prefix: str = "") -> StateDict:
+    """A JAX CLIP visual tree (``VisionTransformer`` or
+    ``ModifiedResNet``, by its keys) -> OpenAI ``visual.*`` keys, without
+    the ``visual.`` part (``prefix`` is prepended)."""
+    if "class_embedding" in params:
+        return vit_visual_state_dict(params, prefix)
+    return resnet_visual_state_dict(params, stats, prefix)
+
+
+def vit_visual_state_dict(params: Mapping[str, Any],
+                          prefix: str = "") -> StateDict:
+    """A JAX ``VisionTransformer`` tree -> OpenAI ``visual.*`` keys: the
+    inverse of ``clipspm_tpu/models/backbones/torch_import.py:
+    convert_clip_state_dict``'s ViT branch."""
+    out: StateDict = {}
+    _conv2d(params["conv1"], out, f"{prefix}conv1")
+    for key in ("class_embedding", "positional_embedding", "proj"):
+        out[f"{prefix}{key}"] = _t(params[key])
+    for ln in ("ln_pre", "ln_post"):
+        _norm(params[ln]["ln"], out, f"{prefix}{ln}")
+    tr = params["transformer"]
+    for i in range(len(tr)):
+        _resblock(tr[f"resblock_{i}"], out,
+                  f"{prefix}transformer.resblocks.{i}")
+    return out
+
+
 def resnet_visual_state_dict(params: Mapping[str, Any],
                              stats: Mapping[str, Any],
                              prefix: str = "") -> StateDict:
     """A JAX ``ModifiedResNet`` tree -> OpenAI ``visual.*`` keys (without
     the ``visual.`` part; ``prefix`` is prepended)."""
-    if "attnpool" not in params:
-        raise NotImplementedError("only the ModifiedResNet visual tower is "
-                                  "ported (ViT waits, ROADMAP.md)")
     out: StateDict = {}
     for i in (1, 2, 3):
         _conv2d(params[f"conv{i}"], out, f"{prefix}conv{i}")
@@ -185,8 +221,8 @@ def clip_state_dict(variables: Mapping[str, Any]) -> StateDict:
     ``models.backbones.clip.CLIPModel``."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    out = resnet_visual_state_dict(params["visual"], stats.get("visual", {}),
-                                   prefix="visual.")
+    out = visual_state_dict(params["visual"], stats.get("visual", {}),
+                            prefix="visual.")
     tr = params["transformer"]
     for i in range(len(tr)):
         _resblock(tr[f"resblock_{i}"], out, f"transformer.resblocks.{i}")
@@ -254,8 +290,7 @@ def model_state_dict(variables: Mapping[str, Any]) -> StateDict:
             f"no port of a model with parameters {sorted(params)}; the port "
             "carries clipspm and ta2n")
     stats = variables.get("batch_stats", {})
-    out = resnet_visual_state_dict(params["backbone"],
-                                   stats.get("backbone", {}),
-                                   prefix="backbone.")
+    out = visual_state_dict(params["backbone"], stats.get("backbone", {}),
+                            prefix="backbone.")
     out.update(head_state_dict(params["head"], prefix="head."))
     return out

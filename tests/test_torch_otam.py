@@ -243,6 +243,11 @@ FUSED_TOL = dict(rtol=1e-4, atol=1e-4)
     (3, 4, 8, 5, 64, True, 0.5),
     (2, 3, 20, 32, 100, True, 0.5),
     (2, 3, 32, 1, 7, False, 0.1),
+    # the ViT-B/16 tower's width: class and task distances in evaluation,
+    # task tokens, and the class and task distances in training
+    (5, 5, 8, 8, 512, True, 0.5),
+    (1, 5, 8, 8, 512, True, 0.5),
+    (20, 5, 8, 8, 512, True, 0.5),
 ])
 def test_fused_mode_matches_plain_on_gpu(cuda_device, Q, S, Lq, Ls, D,
                                          bidirectional, lbda):

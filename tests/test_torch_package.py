@@ -88,13 +88,20 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("opts,error", [
-    (["MODEL.NAME=ta2n"], NotImplementedError),              # ta2n training
+    (["MODEL.NAME=otam"], NotImplementedError),     # an unported head
     (["TEST.ONLY_TEST=true", "TEST.CACHE_FEATURES=false"],
      NotImplementedError),                                    # uncached
     (["TEST.ONLY_TEST=true", "TEST.TEST_MODEL_PATH=/nonexistent/ckpt"],
      FileNotFoundError),
     (["TEST.ONLY_TEST=true", "DEVICE.NUM_CHIPS=2"],
      NotImplementedError),                                    # DDP
+    (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=attn"],
+     NotImplementedError),                          # remat policies not
+    (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=mlp"],
+     NotImplementedError),                          # ported
+    (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=everything"],
+     ValueError),
+    (["MODEL.TRAIN_ENCODE_CHUNK=40"], ValueError),  # BatchNorm tower
 ])
 def test_cli_routes_not_carried_raise_before_model_build(opts, error,
                                                          tmp_path):
@@ -121,12 +128,26 @@ def test_existing_test_model_path_is_refused(tmp_path):
     assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
 
 
-@pytest.mark.parametrize("name", ["otam", "trx", "clipfsar", "molo", "strm",
-                                  "soap", "sten", "cpm2c"])
+UNPORTED_HEADS = ["otam", "trx", "clipfsar", "molo", "strm", "soap", "sten",
+                  "cpm2c"]
+
+
+@pytest.mark.parametrize("name", UNPORTED_HEADS)
 def test_other_heads_raise_not_implemented(name):
     cfg = load_config(HMDB, opts=[f"MODEL.NAME={name}"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("name", UNPORTED_HEADS)
+@pytest.mark.parametrize("only_test", ["true", "false"])
+def test_cli_refuses_unported_heads_before_model_build(name, only_test,
+                                                       tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_cli(["--cfg", HMDB, "--device", "cpu", f"MODEL.NAME={name}",
+                  f"TEST.ONLY_TEST={only_test}",
+                  f"CHECKPOINT.CHECKPOINT_DIR={tmp_path}"])
+    assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
 
 
 def test_build_model_builds_ta2n_at_full_width():

@@ -291,7 +291,8 @@ FUSED_TOL = dict(rtol=1e-4, atol=1e-4)
 @pytest.mark.parametrize("gamma,bandwidth", [(0.1, 0.0), (1.0, 0.0),
                                              (0.1, 2.0), (1.0, 2.0)])
 @pytest.mark.parametrize("B,N,M,D", [(25, 8, 8, 2048), (3, 10, 6, 61),
-                                     (2, 20, 32, 100), (4, 1, 3, 8)])
+                                     (2, 20, 32, 100), (4, 1, 3, 8),
+                                     (100, 8, 8, 2048)])   # ta2n training
 def test_fused_mode_matches_plain_on_gpu(cuda_device, B, N, M, D, gamma,
                                          bandwidth):
     gen = torch.Generator().manual_seed(B * 1000 + D)
@@ -336,3 +337,67 @@ def test_other_forms_use_the_table_mode_on_gpu(cuda_device):
         assert softdtw_cuda.launches == before + launches
         want = tsdtw.softdtw(x.cpu(), y.cpu(), 1.0, **kw)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_backward_under_bf16_autocast_is_fp32_on_gpu(cuda_device):
+    """ta2n's training shape (B = 5 ways x 20 queries = 100): forward and
+    ``backward()`` both called inside a bf16 autocast block. The replay's
+    cosine matmuls stay fp32, so the gradients are fp32 and equal the fp32
+    plain gradients (in bf16 they would be ~1e-2 off)."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(100, 8, 2048, generator=gen).to(cuda_device)
+    y = torch.randn(100, 8, 2048, generator=gen).to(cuda_device)
+    x1, y1 = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = softdtw_cuda.softdtw_cos_padded(x1, y1, 0.1)
+        assert out.dtype == torch.float32
+        out.sum().backward()
+    x2, y2 = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    tsdtw.softdtw_cos_padded_plain(x2, y2, 0.1).sum().backward()
+    assert x1.grad.dtype == y1.grad.dtype == torch.float32
+    torch.testing.assert_close(x1.grad, x2.grad, **GRAD_TOL)
+    torch.testing.assert_close(y1.grad, y2.grad, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("fn", ["cos_padded", "table"])
+def test_autograd_functions_run_with_autocast_off(monkeypatch, fn):
+    """K2's ``autograd.Function``s under CUDA autocast (its state set by
+    hand: this machine has no GPU; the kernel entries stand in as the plain
+    versions on CPU tensors): the forward and the backward's replay both
+    run with autocast off (``custom_fwd(cast_inputs=float32)``,
+    ``custom_bwd``), whatever state ``backward()`` is called in."""
+    seen = []
+
+    def watching(plain):
+        def run(*args):
+            seen.append(torch.is_autocast_enabled("cuda"))
+            return plain(*args)
+        return run
+
+    gen = torch.Generator().manual_seed(3)
+    if fn == "cos_padded":
+        args = [torch.randn(4, 8, 16, generator=gen),
+                torch.randn(4, 8, 16, generator=gen)]
+        plain = tsdtw.softdtw_cos_padded_plain
+        monkeypatch.setattr(softdtw_cuda, "softdtw_cos_padded_cuda",
+                            watching(plain))
+        monkeypatch.setattr(softdtw_cuda, "softdtw_cos_padded_plain",
+                            watching(plain))
+        apply = softdtw_cuda._SoftDTWCosPadded.apply
+    else:
+        args = [torch.rand(4, 10, 8, generator=gen) * 2.0]
+        plain = tsdtw.softdtw_from_dists
+        monkeypatch.setattr(softdtw_cuda, "softdtw_dp_cuda", watching(plain))
+        monkeypatch.setattr(softdtw_cuda, "plain_from_dists", watching(plain))
+        apply = softdtw_cuda._SoftDTW.apply
+    leaves = [a.requires_grad_(True) for a in args]
+    state = torch.is_autocast_enabled("cuda")
+    torch.set_autocast_enabled("cuda", True)
+    try:
+        out = apply(*leaves, 0.1, 0.0)
+        out.sum().backward()
+    finally:
+        torch.set_autocast_enabled("cuda", state)
+    assert seen == [False, False]
+    assert all(a.grad.dtype == torch.float32 for a in leaves)

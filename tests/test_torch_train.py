@@ -306,13 +306,13 @@ def test_loss_dispatch_train_flag_matches_jax(name):
     assert ta.item() == float(ja)
 
 
-def test_fp64_train_step_never_narrows_to_fp32():
-    """The clipspm model in fp64 (the witness ``chip_smoke.py`` holds the
-    card's fp32 train step against): no op of the train forward, the loss
-    or the backward takes an fp64 tensor and returns an fp32 one, and its
-    gradients agree with the fp32 model's to 1e-4 relative over all
-    parameters (test-tiny-rn, dropout off; fp32 rounding is about 1e-5
-    here)."""
+def _fp64_step_narrowing(cfg_path: str, name: str, opts, size: int,
+                         tol: float) -> None:
+    """The model of ``cfg_path`` in fp64 (the witness ``chip_smoke.py``
+    holds the card's fp32 train step against): no op of its train forward,
+    the loss or the backward takes an fp64 tensor and returns an fp32 one,
+    and its gradients agree with the fp32 model's to ``tol`` relative over
+    all parameters (dropout off)."""
     import copy
 
     from torch.utils import _pytree as pytree
@@ -323,17 +323,16 @@ def test_fp64_train_step_never_narrows_to_fp32():
     from clipspm_tpu_torch.weights import random_init_
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cfg = load_config(os.path.join(root, "configs/clipspm/hmdb.yaml"), opts=[
-        "USE_AMP=false", "MODEL.BACKBONE=test-tiny-rn", "DATA.IMG_SIZE=32",
-        "DATA.SEQ_LEN=4", "TRAIN.WAY=2", "TRAIN.SHOT=1",
-        "TRAIN.QUERY_PER_CLASS=1"])
+    cfg = load_config(os.path.join(root, cfg_path), opts=[
+        "USE_AMP=false", f"DATA.IMG_SIZE={size}", "DATA.SEQ_LEN=4",
+        "TRAIN.WAY=2", "TRAIN.SHOT=1", "TRAIN.QUERY_PER_CLASS=1", *opts])
     base = random_init_(build_model(cfg), torch.Generator().manual_seed(0))
     rng = np.random.default_rng(2)
-    frames = [rng.uniform(0, 1, (2, 4, 32, 32, 3)) for _ in range(2)]
+    frames = [rng.uniform(0, 1, (2, 4, size, size, 3)) for _ in range(2)]
     labels = [torch.tensor([1, 0]), torch.tensor([3, 7]),
               torch.tensor([7, 3])]
-    text = rng.normal(size=(len(cfg.TRAIN.CLASS_NAME),
-                            base.arch.embed_dim))
+    width = base.arch.embed_dim if name == "clipspm" else 1
+    text = rng.normal(size=(len(cfg.TRAIN.CLASS_NAME), width))
 
     class Narrowing(TorchDispatchMode):
         def __init__(self):
@@ -361,7 +360,7 @@ def test_fp64_train_step_never_narrows_to_fp32():
         with Narrowing() as mode:
             out = model(*[torch.tensor(f, dtype=dtype) for f in frames],
                         torch.tensor([0, 1]), *labels[1:], tt, tt)
-            loss, _ = tlosses.loss_and_acc("clipspm", out, labels[0], 1)
+            loss, _ = tlosses.loss_and_acc(name, out, labels[0], 1)
             loss.backward()
         if dtype == torch.float64:
             assert loss.dtype == torch.float64
@@ -369,7 +368,36 @@ def test_fp64_train_step_never_narrows_to_fp32():
         grads[dtype] = torch.cat([p.grad.flatten().double()
                                   for _, p in sorted(model.named_parameters())
                                   if p.grad is not None])
-    assert _rel(grads[torch.float32], grads[torch.float64]) <= 1e-4
+    assert _rel(grads[torch.float32], grads[torch.float64]) <= tol
+
+
+def test_fp64_train_step_never_narrows_to_fp32():
+    """The clipspm model (test-tiny-rn; fp32 rounding is about 1e-5 here):
+    gradients to 1e-4."""
+    _fp64_step_narrowing("configs/clipspm/hmdb.yaml", "clipspm",
+                         ["MODEL.BACKBONE=test-tiny-rn"], 32, 1e-4)
+
+
+@pytest.mark.parametrize("opts", [
+    ["MODEL.BACKBONE=test-tiny"],
+    ["MODEL.BACKBONE=test-tiny", "MODEL.ENCODE_CHUNK=3",
+     "MODEL.TRAIN_ENCODE_CHUNK=true"]], ids=["vit", "vit-remat"])
+def test_fp64_vit_train_step_never_narrows_to_fp32(opts):
+    """The clipspm model on the ViT tower, unchunked and remat-chunked
+    (3 frames a chunk, ``attn_out``): gradients to 1e-4."""
+    _fp64_step_narrowing("configs/clipspm/hmdb.yaml", "clipspm", opts, 32,
+                         1e-4)
+
+
+@pytest.mark.parametrize("metric", ["cos", "otam"])
+def test_fp64_ta2n_train_step_never_narrows_to_fp32(metric):
+    """The ta2n model (test-tiny-resnet at 64 px, both metrics; the soft-DTW
+    plain version in fp64 on the CPU): gradients to 1e-3 (every trunk
+    convolution feeds a BatchNorm, so fp32 rounding moves the summed
+    gradient more than the clipspm tower's)."""
+    _fp64_step_narrowing("configs/ta2n/ucf.yaml", "ta2n",
+                         ["MODEL.BACKBONE=test-tiny-resnet",
+                          f"MODEL.METRIC={metric}"], 64, 1e-3)
 
 
 # -- the episode loader ---------------------------------------------------------
