@@ -16,7 +16,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    and CUDA-graph timings from CUDA events: K1 (OTAM DP) and K2 (soft-DTW
    DP), each in table mode and in fused mode (cosine table and both DP
    directions in one launch), the fused modes also against the op chain
-   each launch replaces;
+   each launch replaces; K1 also at cpm2c's motion stream (L=7);
 4. the main paths at full width, each through the port's CLI on random
    weights over a synthetic split, with every kernel launch counter set to
    0 just before the path and read just after:
@@ -28,6 +28,16 @@ Phases, in order; any failure ends the run with a nonzero exit:
      UCF-layout split (K2's fused mode, 1 launch per episode);
    - clipspm-vit: the same on the ViT-B/16 tower (feature width 512),
      whose fp32 features on the card are also held against the CPU's;
+   - clipfsar, cpm2c (HMDB layout, RN50, 5-way 1-shot, bf16; 1 and 2 K1
+     launches per episode, cpm2c's second at L=7) and sten (UCF layout; no
+     kernel): feature-cached evaluation, each head's fp32 logits on the
+     card held against the CPU's;
+   - clipspm-uncached and clipspm-vit-uncached: the clipspm and clipspm-vit
+     paths with ``TEST.CACHE_FEATURES=false``, the uncached evaluator at
+     ``TEST.EVAL_BATCH`` 32 episodes a step over the test EpisodeLoader (3
+     K1 launches per episode); then the same 8 episodes through the uncached
+     and the cached evaluator at fp32, whose losses and accuracies must
+     agree;
    - clipspm-train and clipspm-vit-train: CLIP-SPM training on the RN50 and
      the ViT-B/16 towers (5-way 5-shot 4-query, 16 episodes an Adam step,
      bf16; the ViT in rematerialised chunks of 40 frames keeping the
@@ -39,8 +49,14 @@ Phases, in order; any failure ends the run with a nonzero exit:
      4-query, SGD, bf16) over a UCF-layout train split, the same stages
      (K2's fused mode, 1 launch per episode, its backward the plain
      version's replay in fp32; K1 none);
-   each train path also profiles one optimizer step and holds one fp32
-   train step on the card and on the CPU against an fp64 step on the CPU.
+   - clipfsar-train (cached validation, 1 K1 launch per episode) and
+     cpm2c-train (uncached validation and test, 2 K1 launches per episode):
+     clipfsar/hmdb.yaml and cpm2c/hmdb.yaml training (5-way 1-shot 4-query,
+     Adam, bf16), the same stages;
+   each train path also profiles one optimizer step; the clipspm and ta2n
+   ones hold one fp32 train step on the card and on the CPU against an fp64
+   step on the CPU, clipfsar's and cpm2c's hold the head's fp32 gradients
+   on the card against the CPU's.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -54,6 +70,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -75,17 +92,20 @@ OTAM_LAMBDAS = (0.5, 0.1)
 # prototypes and task prototypes, Q*way = 5*5; task tokens, 1*way; 1600 = 64
 # episodes x 25 pairs), plus the widest table it takes (Ms + 2 = 34)
 OTAM_TABLES = ((25, 8, 8), (5, 8, 8), (1600, 8, 8), (25, 8, 32))
-# K1's fused mode: (Q, S, D, bidirectional, lambda); the first is the clipspm
-# head's class and task distances in evaluation (RN50 width 1024, T=8, 5
-# queries), then its task tokens (Q=1), single direction, a width that is not
-# a multiple of 4 (4-byte copies), the otam head's lambda, and the class and
-# task distances in training (4 queries a class: Q=20); then the same three
-# shapes at the ViT-B/16 tower's width 512
-OTAM_FUSED = ((5, 5, 1024, True, 0.5), (5, 5, 1024, False, 0.5),
-              (1, 5, 1024, True, 0.5), (1, 5, 1024, False, 0.5),
-              (5, 5, 1021, True, 0.5), (5, 5, 1024, True, 0.1),
-              (20, 5, 1024, True, 0.5), (5, 5, 512, True, 0.5),
-              (1, 5, 512, True, 0.5), (20, 5, 512, True, 0.5))
+# K1's fused mode: (Q, S, L, D, bidirectional, lambda); the first is the
+# clipspm head's class and task distances in evaluation (RN50 width 1024,
+# L = T = 8, 5 queries; clipfsar's and cpm2c's appearance distance too), then
+# its task tokens (Q=1), single direction, a width that is not a multiple of
+# 4 (4-byte copies), the otam head's lambda, and the class and task
+# distances in training (4 queries a class: Q=20); then the same three
+# shapes at the ViT-B/16 tower's width 512; then cpm2c's motion distance
+# (one frame fewer: L=7) in evaluation and in training
+OTAM_FUSED = ((5, 5, 8, 1024, True, 0.5), (5, 5, 8, 1024, False, 0.5),
+              (1, 5, 8, 1024, True, 0.5), (1, 5, 8, 1024, False, 0.5),
+              (5, 5, 8, 1021, True, 0.5), (5, 5, 8, 1024, True, 0.1),
+              (20, 5, 8, 1024, True, 0.5), (5, 5, 8, 512, True, 0.5),
+              (1, 5, 8, 512, True, 0.5), (20, 5, 8, 512, True, 0.5),
+              (5, 5, 7, 1024, True, 0.5), (20, 5, 7, 1024, True, 0.5))
 OTAM_T = 8
 TOL = 2e-5   # fp32 table mode: the same soft-min, rounded in another order
 # fp32 fused modes: 1024- and 2048-long dot products summed in another order
@@ -255,11 +275,11 @@ def phase_k1() -> dict:
                 f"{gerr:.3e}; kernel_ms {k_ms:.5f} (device {k_dev:.5f}), "
                 f"plain_ms {p_ms:.4f} (device {p_dev:.4f}), bound_ms "
                 f"{bound_ms:.3e} ({bound_by})")
-    for Q, S, D, bidir, lbda in OTAM_FUSED:
-        sup = torch.randn(S, OTAM_T, D, generator=gen).to(dev)
-        qry = torch.randn(Q, OTAM_T, D, generator=gen).to(dev)
-        what = (f"K1 fused mode Q={Q} S={S} D={D} bidirectional={bidir} "
-                f"lambda={lbda}")
+    for Q, S, L, D, bidir, lbda in OTAM_FUSED:
+        sup = torch.randn(S, L, D, generator=gen).to(dev)
+        qry = torch.randn(Q, L, D, generator=gen).to(dev)
+        what = (f"K1 fused mode Q={Q} S={S} L={L} D={D} bidirectional="
+                f"{bidir} lambda={lbda}")
         err = _check_close(
             what, otam_cuda.otam_distance_cuda(sup, qry, lbda, bidir, 0.01),
             otam_distance_plain(sup, qry, lbda, bidir), FUSED_TOL)
@@ -273,12 +293,11 @@ def phase_k1() -> dict:
             # what the fused launch replaces: the cosine ops, the copies
             # and the table-mode launches
             t = frame_distance_cos(qry, sup)
-            out = otam_cuda.otam_dp_cuda(t.reshape(-1, OTAM_T, OTAM_T)
-                                         .contiguous(), lbda)
+            out = otam_cuda.otam_dp_cuda(t.reshape(-1, L, L).contiguous(),
+                                         lbda)
             if bidir:
                 out = out + otam_cuda.otam_dp_cuda(
-                    t.transpose(-2, -1).reshape(-1, OTAM_T, OTAM_T)
-                    .contiguous(), lbda)
+                    t.transpose(-2, -1).reshape(-1, L, L).contiguous(), lbda)
             return out.reshape(Q, S)
 
         k_ms, k_dev = _times(lambda: otam_cuda.otam_distance_cuda(
@@ -286,8 +305,8 @@ def phase_k1() -> dict:
         c_ms, c_dev = _times(chain)
         p_ms, p_dev = _times(lambda: otam_distance_plain(sup, qry, lbda,
                                                          bidir), iters=20)
-        bound_ms, bound_by = _otam_fused_bound_ms(Q, S, OTAM_T, D, bidir)
-        fused[(Q, S, D, bidir, lbda)] = dict(
+        bound_ms, bound_by = _otam_fused_bound_ms(Q, S, L, D, bidir)
+        fused[(Q, S, L, D, bidir, lbda)] = dict(
             ms=k_ms, device_ms=k_dev, replaced_chain_ms=c_ms,
             replaced_chain_device_ms=c_dev, plain_ms=p_ms,
             plain_device_ms=p_dev, bound_ms=bound_ms, bound_by=bound_by)
@@ -301,13 +320,12 @@ def phase_k1() -> dict:
                                  f"than the chain it replaces")
     log("K1 library_ms: none -- no single PyTorch call computes the OTAM "
         "soft-min DP")
-    main = fused[(5, 5, 1024, True, 0.5)]
-    train = {f"Q={q} S=5 L=8 D=1024 bidirectional lambda=0.5": {
-        "library_ms": None, **fused[(q, 5, 1024, True, 0.5)]}
-        for q in (20, 1)}
-    vit = {f"Q={q} S=5 L=8 D=512 bidirectional lambda=0.5": {
-        "library_ms": None, **fused[(q, 5, 512, True, 0.5)]}
-        for q in (5, 1, 20)}
+    main = fused[(5, 5, 8, 1024, True, 0.5)]
+
+    def shapes(qs, L, D):
+        return {f"Q={q} S=5 L={L} D={D} bidirectional lambda=0.5": {
+            "library_ms": None, **fused[(q, 5, L, D, True, 0.5)]}
+            for q in qs}
     return {"name": "otam_dp (K1)", "status": "ported", "route": "cuda",
             "source": "clipspm_tpu_torch/csrc/otam_dp.cu",
             "replaces": "clipspm_tpu/ops/otam_pallas.py:54",
@@ -317,7 +335,9 @@ def phase_k1() -> dict:
             "library_ms": None,
             "fused": {"shape": "Q=5 S=5 L=8 D=1024 bidirectional lambda=0.5",
                       **main},
-            "train_shapes": train, "vit_shapes": vit,
+            "train_shapes": shapes((20, 1), 8, 1024),
+            "vit_shapes": shapes((5, 1, 20), 8, 512),
+            "motion_shapes": shapes((5, 20), 7, 1024),
             "table": {"shape": [25, OTAM_T, OTAM_T], "lambda": 0.5,
                       **table[(25, OTAM_T, OTAM_T, 0.5)]}}
 
@@ -447,7 +467,16 @@ def phase_k2() -> dict:
 #   second tower: width 768, 12 layers, 16-px patches, feature width 512;
 #   30 frames a tower call), the clipspm path's split; 3 fused K1 launches
 #   per episode at D=512. Its tower's fp32 features are held against the
-#   CPU's too.
+#   CPU's too;
+# - clipfsar: configs/clipfsar/hmdb.yaml (RN50, 5-way 1-shot 1-query, bf16),
+#   the clipspm path's split; one bidirectional OTAM per episode (1 fused K1
+#   launch);
+# - cpm2c: configs/cpm2c/hmdb.yaml (RN50, 5-way 1-shot, MOTION_COFF 0,
+#   NORMAL_COFF 1, LMD [0.5, 1, 0]), the same split; two OTAMs per episode,
+#   the appearance stream at L=8 and the motion stream at L=7 (2 fused K1
+#   launches; the motion one is computed at weight 0, as in the JAX head);
+# - sten: configs/sten/ucf.yaml (RN50, 5-way 1-shot) over the UCF-layout
+#   split; no DP, so no kernel.
 PATHS = {
     "clipspm": dict(cfg="configs/clipspm/hmdb.yaml", opts=(),
                     frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
@@ -462,8 +491,22 @@ PATHS = {
                         frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
                         classes=10, videos=12, launches={"K1": 3, "K2": 0},
                         metrics=(None,), tower_check=True),
+    "clipfsar": dict(cfg="configs/clipfsar/hmdb.yaml", opts=(),
+                     frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
+                     classes=10, videos=12, launches={"K1": 1, "K2": 0},
+                     metrics=(None,)),
+    "cpm2c": dict(cfg="configs/cpm2c/hmdb.yaml", opts=(),
+                  frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
+                  classes=10, videos=12, launches={"K1": 2, "K2": 0},
+                  metrics=(None,)),
+    "sten": dict(cfg="configs/sten/ucf.yaml", opts=(),
+                 frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
+                 classes=21, videos=6, launches={"K1": 0, "K2": 0},
+                 metrics=(None,)),
 }
-MAIN_EPISODES = 300
+# episodes of each cached eval path (cut from 300 to make room for the
+# uncached and head paths within the script's time)
+MAIN_EPISODES = 200
 SPLIT_FRAMES, SPLIT_PX = 10, 256
 SEQ_LEN = 8
 # the head on the card (fp32, no TF32) against the head on the CPU (fp32):
@@ -589,11 +632,13 @@ class _Recorder:
 
     @contextlib.contextmanager
     def installed(self):
+        from clipspm_tpu_torch.data import pipeline
         from clipspm_tpu_torch.train import feature_cache, setup
 
         build_learner = setup.build_learner
         build_table = feature_cache.FeatureCachedEvaluator.build_table
         decode = feature_cache.decode_path_lists
+        loader_decode = pipeline.decode_path_lists
 
         def rec_build_learner(*a, **kw):
             self.learner = build_learner(*a, **kw)
@@ -605,13 +650,16 @@ class _Recorder:
 
         setup.build_learner = rec_build_learner
         feature_cache.FeatureCachedEvaluator.build_table = rec_build_table
+        # the table's decode and the episode loaders' (data/pipeline.py)
         feature_cache.decode_path_lists = seeded_frames
+        pipeline.decode_path_lists = seeded_frames
         try:
             yield self
         finally:
             setup.build_learner = build_learner
             feature_cache.FeatureCachedEvaluator.build_table = build_table
             feature_cache.decode_path_lists = decode
+            pipeline.decode_path_lists = loader_decode
 
 
 def _first_episodes(rec: _Recorder, argv, n: int) -> list:
@@ -736,8 +784,9 @@ def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
         out = learner.model.match_features(su, qu, sl, rs, rt,
                                            learner.text_train,
                                            learner.text_test)
-        return loss_and_acc(learner.model_name, out, tl,
-                            learner.tasks_per_batch)
+        return loss_and_acc(learner.model_name, out, tl, rs, rt,
+                            learner.tasks_per_batch, cfg=learner.cfg,
+                            train=False)
 
     with torch.no_grad():
         for ep in eps[:2]:
@@ -884,6 +933,202 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
     return out
 
 
+# The uncached eval paths: the JAX package's default test route
+# (TEST.CACHE_FEATURES false) and its benchmark's primary measurement, through
+# the port's CLI: the test EpisodeLoader's episodes (seeded frames after the
+# decode stage, as above), TEST.EVAL_BATCH (32, as shipped) a step, each
+# episode's 240 frames transformed and encoded afresh, the episodes of a step
+# run one after another. UNCACHED_EPISODES is two full steps. Each path runs
+# its eval path's config and split with TEST.CACHE_FEATURES=false.
+UNCACHED_PATHS = {"clipspm-uncached": "clipspm",
+                  "clipspm-vit-uncached": "clipspm-vit"}
+UNCACHED_EPISODES = 64
+# uncached = cached on the card: the first EQUAL_EPISODES episodes of the
+# clipspm path's stream through both evaluators, fp32 (USE_AMP false, TF32
+# off in cuBLAS and cuDNN): mean losses within EQUAL_LOSS_REL of each other,
+# accuracies equal
+EQUAL_EPISODES, EQUAL_LOSS_REL = 8, 1e-4
+
+
+class _EvalRecorder(_Recorder):
+    """Also times each step of the uncached evaluator with CUDA events."""
+
+    def __init__(self):
+        super().__init__()
+        self.batches = []        # (n episodes, start event, end event)
+
+    @contextlib.contextmanager
+    def installed(self):
+        from clipspm_tpu_torch.train import learner
+
+        eval_batch = learner.Learner._eval_batch
+
+        def timed_batch(lrn, batch, n):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = eval_batch(lrn, batch, n)
+            ev[1].record()
+            self.batches.append((n, *ev))
+            return out
+
+        learner.Learner._eval_batch = timed_batch
+        try:
+            with super().installed():
+                yield self
+        finally:
+            learner.Learner._eval_batch = eval_batch
+
+
+def _frames_per_episode(cfg) -> int:
+    return (int(cfg.TRAIN.WAY) * (int(cfg.TRAIN.SHOT)
+                                  + int(cfg.TEST.QUERY_PER_CLASS))
+            * int(cfg.DATA.SEQ_LEN))
+
+
+def profile_uncached(learner, cfg, episodes: int = 4) -> dict:
+    """Where an uncached step's time goes: ``episodes`` fresh test
+    episodes (seeded frames), staged as the evaluator stages them, through
+    ``Learner._eval_batch`` (transform, encode, head, loss; bf16, as
+    evaluated) under ``torch.profiler``, after one unprofiled pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clipspm_tpu_torch.data import pipeline
+    from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
+
+    catalog, sampler = build_catalog_and_sampler(
+        cfg, "test", False, int(cfg.TEST.QUERY_PER_CLASS))
+    decode = pipeline.decode_path_lists
+    pipeline.decode_path_lists = seeded_frames
+    try:
+        eps = [pipeline.decode_plan(sampler.sample(), catalog)
+               for _ in range(episodes)]
+    finally:
+        pipeline.decode_path_lists = decode
+    batch = learner._ready(*learner._to_device(eps))
+    learner.model.eval()
+    learner._eval_batch(batch, episodes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner._eval_batch(batch, episodes)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _summarize(prof, wall_us, episodes)[0]
+
+
+def phase_uncached_path(name: str) -> dict:
+    from clipspm_tpu_torch.cli.run import main as cli_main
+
+    spec = PATHS[UNCACHED_PATHS[name]]
+    counters = _counters()
+    with tempfile.TemporaryDirectory() as root:
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
+        argv = ["--cfg", spec["cfg"], "--splits-root", root,
+                "--allow-random-weights", "--device", "cuda",
+                "TEST.ONLY_TEST=true", "TEST.CACHE_FEATURES=false",
+                f"TEST.TEST_EPISODES={UNCACHED_EPISODES}",
+                f"DATA.DATA_DIR={root}",
+                f"CHECKPOINT.CHECKPOINT_DIR={os.path.join(root, 'ckpt')}",
+                *spec["opts"]]
+        rec = _EvalRecorder()
+        _fresh_peak()
+        with rec.installed():
+            _zero_counters(counters)
+            t0 = time.perf_counter()
+            res = cli_main(argv)
+            wall = time.perf_counter() - t0
+            launches = _read_counters(counters)
+        peak = torch.cuda.max_memory_allocated()
+        cfg = rec.learner.cfg
+        step_profile = profile_uncached(rec.learner, cfg)
+    E = int(cfg.TEST.EVAL_BATCH)
+    batches = [(n, a.elapsed_time(b) / 1e3) for n, a, b in rec.batches]
+    want_batches = [E] * (UNCACHED_EPISODES // E) + (
+        [UNCACHED_EPISODES % E] if UNCACHED_EPISODES % E else [])
+    if [n for n, _ in batches] != want_batches:
+        raise AssertionError(f"{name}: batches {batches}, expected "
+                             f"{want_batches}")
+    for k, per_episode in spec["launches"].items():
+        if launches[k] != per_episode * UNCACHED_EPISODES:
+            raise AssertionError(f"{k} launched {launches[k]} times on the "
+                                 f"{name} path; expected "
+                                 f"{per_episode * UNCACHED_EPISODES}")
+    for key in ("accuracy", "confidence", "loss"):
+        if not math.isfinite(res[key]):
+            raise AssertionError(f"{name} path {key} is not finite: {res}")
+    frames = _frames_per_episode(cfg) * UNCACHED_EPISODES
+    out = {"path": name, "episodes": UNCACHED_EPISODES, "eval_batch": E,
+           "accuracy": res["accuracy"], "confidence": res["confidence"],
+           "loss": res["loss"], "launches": launches,
+           "episodes_per_s": UNCACHED_EPISODES / res["seconds"],
+           "encode_frames_per_s": frames / res["seconds"],
+           "batch_device_seconds": [t for _, t in batches],
+           "batch_device_seconds_p50": statistics.median(
+               t for _, t in batches),
+           "host_stall_pct": 100.0 * res["host_stall_seconds"]
+           / res["seconds"],
+           "evaluate_seconds": res["seconds"], "cli_seconds": wall,
+           "build_seconds": rec.learner.build_seconds,
+           "peak_memory_bytes": peak}
+    log(json.dumps({"main_path": out}))
+    log(json.dumps({"uncached_profile": {"path": name, **step_profile}}))
+    return out
+
+
+def phase_uncached_equals_cached() -> dict:
+    """The clipspm path's first EQUAL_EPISODES episodes through the uncached
+    and the feature-cached evaluator of one learner on the card, fp32."""
+    from clipspm_tpu_torch.train.feature_cache import FeatureCachedEvaluator
+    from clipspm_tpu_torch.train.setup import (build_catalog_and_sampler,
+                                               build_learner)
+    from clipspm_tpu_torch.utils.config import load_config
+
+    spec = PATHS["clipspm"]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    with tempfile.TemporaryDirectory() as root:
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
+        cfg = load_config(spec["cfg"], splits_root=root, opts=[
+            *spec["opts"], "USE_AMP=false", "TEST.ONLY_TEST=true",
+            f"DATA.DATA_DIR={root}",
+            f"CHECKPOINT.CHECKPOINT_DIR={os.path.join(root, 'ckpt')}"])
+        with _Recorder().installed():
+            learner = build_learner(cfg, log_fn=log, device="cuda",
+                                    allow_random_weights=True)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                uncached = learner.evaluate(
+                    EQUAL_EPISODES, batch_size=int(cfg.TEST.EVAL_BATCH))
+                catalog, sampler = build_catalog_and_sampler(
+                    cfg, "test", False, int(cfg.TEST.QUERY_PER_CLASS))
+                ev = FeatureCachedEvaluator(
+                    learner, catalog, sampler,
+                    num_decode_workers=int(cfg.DATA.NUM_WORKERS), log_fn=log)
+                try:
+                    cached = ev.evaluate(EQUAL_EPISODES)
+                finally:
+                    ev.close()
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = tf32
+                learner.close()
+    rel = abs(uncached["loss"] - cached["loss"]) / abs(cached["loss"])
+    out = {"path": "clipspm", "episodes": EQUAL_EPISODES,
+           "loss": {"uncached": uncached["loss"], "cached": cached["loss"]},
+           "loss_rel_diff": rel, "loss_rel_tol": EQUAL_LOSS_REL,
+           "accuracy": {"uncached": uncached["accuracy"],
+                        "cached": cached["accuracy"]}}
+    log(json.dumps({"uncached_equals_cached": out}))
+    if rel > EQUAL_LOSS_REL or uncached["accuracy"] != cached["accuracy"]:
+        raise AssertionError(f"uncached and cached evaluation disagree: "
+                             f"{out}")
+    return out
+
+
 # The train paths: a shipped config's training run through the port's CLI
 # on random weights, over a synthetic train split of the dataset's layout
 # (the train split's class count; videos a class = shot + queries) and its
@@ -903,12 +1148,22 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
 #   T=8, 5-way 1-shot 4-query, bf16, SGD at LR 1e-3, momentum 0.9, WD
 #   1e-3), 70 train classes x 5 videos (UCF101's ARN train split has 70
 #   classes). K2 at B = 5 x 20 = 100 pairs in training, 25 in evaluation.
-# Each runs 40 episodes (steps of 16, 16 and 8), validation and a periodic
-# checkpoint at episode 32.
+# - clipfsar-train: clipfsar/hmdb.yaml as shipped (RN50, 5-way 1-shot
+#   4-query, 200 frames an episode, bf16, Adam at LR 2e-6, TASKS_PER_BATCH
+#   4: ten steps), 31 train classes x 5 videos; cached validation. 1 K1
+#   launch an episode;
+# - cpm2c-train: cpm2c/hmdb.yaml as shipped (the same episode layout,
+#   TASKS_PER_BATCH 16, Adam at LR 1e-5, the consistency term on), the same
+#   split, validating and testing uncached (TEST.CACHE_FEATURES=false). 2
+#   K1 launches an episode (L=8 and L=7).
+# Each runs 40 episodes (steps of TASKS_PER_BATCH and the rest), validation
+# and a periodic checkpoint at episode 32.
 # ``check``: the one fp32 train step held against fp64 (below): its episodes
 # and shape (one 5-way 1-shot 1-query episode, 80 frames: the CPU's fp64
 # step sets the script's length), the per-tensor factor, and the tensors
-# whose gradient is zero in exact arithmetic.
+# whose gradient is zero in exact arithmetic. None: the head's gradients on
+# the card against the CPU's instead (``check_head_grads_against_cpu``; the
+# clipfsar and cpm2c heads hold no BatchNorm).
 TRAIN_PATHS = {
     "clipspm-train": dict(
         eval_path="clipspm", train_classes=31, train_videos=9,
@@ -923,6 +1178,13 @@ TRAIN_PATHS = {
         check=dict(factor=2.0,
                    zero_grad=("ttm.loc_conv1.bias", "ttm.loc_conv2.bias",
                               "acm.mv_conv1.bias", "acm.mv_conv2.bias"))),
+    "clipfsar-train": dict(
+        eval_path="clipfsar", train_classes=31, train_videos=5,
+        launches={"K1": 1, "K2": 0}, check=None),
+    "cpm2c-train": dict(
+        eval_path="cpm2c", train_classes=31, train_videos=5,
+        opts=("TEST.CACHE_FEATURES=false",), launches={"K1": 2, "K2": 0},
+        check=None),
 }
 TRAIN_EPISODES, VAL_FREQ, SAVE_FREQ, VAL_EPISODES, PRINT_FREQ = \
     40, 32, 32, 100, 16
@@ -953,6 +1215,15 @@ PROFILE_EPISODES = 2
 # relative to the witness.
 TRAIN_CHECK_FLOOR = 1e-4
 TRAIN_CHECK_TOL = 1e-4
+# The head's parameter gradients (clipfsar, cpm2c) over the same features:
+# fp32 on the card (TF32 off, K1's replay), fp32 on the CPU (the plain
+# versions) and the fp64 witness on the CPU. Each tensor's card error
+# against the witness may be twice the CPU's own, or HEAD_GRAD_TOL where
+# that is smaller: most tensors agree to 1e-6, but context2's last bias
+# sums its upstream gradient over every token, and cancels (the card and
+# the CPU fp32 1.55e-4 apart on cpm2c's, measured on an H100 80GB HBM3 at
+# 700 W). A wrong gradient path is off by O(1).
+HEAD_GRAD_TOL = 1e-4
 
 
 class _TrainRecorder(_Recorder):
@@ -966,12 +1237,11 @@ class _TrainRecorder(_Recorder):
 
     @contextlib.contextmanager
     def installed(self):
-        from clipspm_tpu_torch.data import pipeline
         from clipspm_tpu_torch.train import feature_cache, learner
 
         step = learner.Learner._step
-        evaluate = feature_cache.FeatureCachedEvaluator.evaluate
-        decode = pipeline.decode_path_lists
+        evaluators = {cls: cls.evaluate for cls in (
+            feature_cache.FeatureCachedEvaluator, learner.Learner)}
         counters = _counters()
 
         def timed_step(lrn, batch, n_valid):
@@ -982,28 +1252,31 @@ class _TrainRecorder(_Recorder):
             self.steps.append((n_valid, *ev))
             return out
 
-        def counted_evaluate(ev, n):
-            # the validation's launches apart: set to 0 just before it, read
-            # just after, and training's counts put back
-            train_counts = _read_counters(counters)
-            _zero_counters(counters)
-            try:
-                return evaluate(ev, n)
-            finally:
-                self.val_launches.append(_read_counters(counters))
-                for k, mod in counters.items():
-                    mod.launches = train_counts[k]
+        def counted(evaluate):
+            def counted_evaluate(ev, n, *args, **kwargs):
+                # the validation's launches apart (cached or uncached): set
+                # to 0 just before it, read just after, and training's
+                # counts put back
+                train_counts = _read_counters(counters)
+                _zero_counters(counters)
+                try:
+                    return evaluate(ev, n, *args, **kwargs)
+                finally:
+                    self.val_launches.append(_read_counters(counters))
+                    for k, mod in counters.items():
+                        mod.launches = train_counts[k]
+            return counted_evaluate
 
         learner.Learner._step = timed_step
-        feature_cache.FeatureCachedEvaluator.evaluate = counted_evaluate
-        pipeline.decode_path_lists = seeded_frames
+        for cls, evaluate in evaluators.items():
+            cls.evaluate = counted(evaluate)
         try:
             with super().installed():
                 yield self
         finally:
             learner.Learner._step = step
-            feature_cache.FeatureCachedEvaluator.evaluate = evaluate
-            pipeline.decode_path_lists = decode
+            for cls, evaluate in evaluators.items():
+                cls.evaluate = evaluate
 
 
 def _fresh_peak() -> None:
@@ -1260,6 +1533,113 @@ def check_train_step_against_cpu(cfg_path: str, opts, check: dict) -> dict:
     return out
 
 
+def check_head_grads_against_cpu(learner, cfg) -> dict:
+    """The trained head's parameter gradients on the card (fp32, TF32 off)
+    and on a CPU copy (fp32) against the CPU copy's in fp64, over one train
+    episode's features (the tower in eval mode on the card), train mode
+    with dropout's modules in eval mode, the dispatch's train loss; a tensor
+    whose gradient is 0 in fp64 (a stream weighted 0) must be 0 on the card
+    too."""
+    import copy
+
+    import numpy as np
+
+    from clipspm_tpu_torch.data import pipeline
+    from clipspm_tpu_torch.data.transforms import episode_device_transform
+    from clipspm_tpu_torch.train.losses import loss_and_acc
+    from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
+
+    catalog, sampler = build_catalog_and_sampler(
+        cfg, "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
+    decode = pipeline.decode_path_lists
+    pipeline.decode_path_lists = seeded_frames
+    try:
+        ep = pipeline.decode_plan(sampler.sample(), catalog)
+    finally:
+        pipeline.decode_path_lists = decode
+    gpu = learner.model
+    dtype, gpu.compute_dtype = gpu.compute_dtype, None
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grads, losses = {}, {}
+    try:
+        cpu_model = copy.deepcopy(gpu).cpu().float()
+        t = learner.transform
+        with torch.no_grad():
+            gpu.eval()
+            feats = [gpu.encode(episode_device_transform(
+                torch.from_numpy(x).to(learner.device), train=False,
+                img_size=t.img_size, resize_to=t.resize_to,
+                normalize=t.normalize)).float()
+                for x in (ep.support_images, ep.target_images)]
+        labels = [torch.from_numpy(np.asarray(x)) for x in (
+            ep.support_labels, ep.real_support_labels,
+            ep.real_target_labels, ep.target_labels)]
+        cpu = torch.device("cpu")
+        for side, model, dev, dt in (
+                ("card", gpu, learner.device, torch.float32),
+                ("cpu", cpu_model, cpu, torch.float32),
+                ("fp64", copy.deepcopy(cpu_model).double(), cpu,
+                 torch.float64)):
+            model.train()
+            for m in model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.eval()
+            model.zero_grad(set_to_none=True)
+            su, qu = [f.to(dev, dt) for f in feats]
+            sl, rs, rt, tl = [x.to(dev) for x in labels]
+            out = model.match_features(su, qu, sl, rs, rt,
+                                       learner.text_train.to(dev, dt),
+                                       learner.text_test.to(dev, dt))
+            loss, _ = loss_and_acc(learner.model_name, out, tl, rs, rt,
+                                   learner.tasks_per_batch, cfg=cfg,
+                                   train=True)
+            loss.backward()
+            losses[side] = loss.item()
+            grads[side] = {k: p.grad.detach().cpu().double()
+                           for k, p in model.named_parameters()
+                           if p.grad is not None
+                           and not k.startswith("backbone.")}
+    finally:
+        gpu.compute_dtype = dtype
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    card, cpu, ref = grads["card"], grads["cpu"], grads["fp64"]
+    rows, bad, zero = [], [], 0
+    if not set(card) == set(cpu) == set(ref) or not ref:
+        bad.append(f"gradient tensors differ: {sorted(set(card) ^ set(ref))}")
+    for k in sorted(set(card) & set(cpu) & set(ref)):
+        if not ref[k].any():
+            zero += 1
+            if card[k].any() or cpu[k].any():
+                bad.append(f"{k}: zero in fp64, not in fp32")
+            continue
+        err, cpu_err = rel(card[k], ref[k]), rel(cpu[k], ref[k])
+        rows.append((err, cpu_err, rel(card[k], cpu[k]), k))
+        if not err <= max(2.0 * cpu_err, HEAD_GRAD_TOL):
+            bad.append(f"{k} {err:.3e} (CPU fp32 {cpu_err:.3e})")
+    rows.sort(reverse=True)
+    out = {"frames": int(cfg.TRAIN.WAY) * int(cfg.DATA.SEQ_LEN) * (
+               int(cfg.TRAIN.SHOT) + int(cfg.TRAIN.QUERY_PER_CLASS)),
+           "grad_tensors": len(rows), "zero_grad_tensors": zero,
+           "grad_rel_l2_vs_fp64_worst": [[k, e, ce, cc]
+                                         for e, ce, cc, k in rows[:6]],
+           "grad_rel_l2_card_vs_cpu_max": max(
+               (cc for _, _, cc, _ in rows), default=0.0),
+           "loss": losses, "factor": 2.0, "floor": HEAD_GRAD_TOL}
+    log(json.dumps({"head_grads_vs_cpu": out}))
+    if bad:
+        raise AssertionError("head gradients on the card vs the CPU: "
+                             + "; ".join(bad[:8]))
+    return out
+
+
 def phase_train_path(name: str) -> dict:
     from clipspm_tpu_torch.cli.run import main as cli_main
     from clipspm_tpu_torch.utils.config import load_config
@@ -1282,7 +1662,7 @@ def phase_train_path(name: str) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
         ckpt = os.path.join(root, "ckpt")
         flags = ["--cfg", spec["cfg"], "--splits-root", root]
-        opts = [*spec["opts"], f"DATA.DATA_DIR={root}",
+        opts = [*spec["opts"], *run.get("opts", ()), f"DATA.DATA_DIR={root}",
                 f"CHECKPOINT.CHECKPOINT_DIR={ckpt}"]
         train_opts = [*opts, "TEST.ONLY_TEST=false",
                       f"TRAIN.TRAIN_EPISODES={TRAIN_EPISODES}",
@@ -1341,6 +1721,10 @@ def phase_train_path(name: str) -> dict:
         profile = profile_train_step(learner, cfg)
         stage_seconds["profile"] = time.perf_counter() - t0
         log(json.dumps({"train_profile": {"path": name, **profile}}))
+        if run["check"] is None:
+            t0 = time.perf_counter()
+            check = check_head_grads_against_cpu(learner, cfg)
+            stage_seconds["check"] = time.perf_counter() - t0
         del learner, rec
 
         # ONLY_TEST from checkpoint_best: the restored state is the saved
@@ -1368,10 +1752,11 @@ def phase_train_path(name: str) -> dict:
             raise AssertionError(f"{name}: launches {test_launches} in the "
                                  f"ONLY_TEST run; expected {want['val'][0]}")
         del test_rec
-    t0 = time.perf_counter()
-    check = check_train_step_against_cpu(spec["cfg"], spec["opts"],
-                                         run["check"])
-    stage_seconds["check"] = time.perf_counter() - t0
+    if run["check"] is not None:
+        t0 = time.perf_counter()
+        check = check_train_step_against_cpu(spec["cfg"], spec["opts"],
+                                             run["check"])
+        stage_seconds["check"] = time.perf_counter() - t0
     rate_steps = steps[1:]
     out = {"path": name, "episodes": res["episodes"],
            "step_losses": losses, "step_episodes": [n for n, _ in steps],
@@ -1390,7 +1775,8 @@ def phase_train_path(name: str) -> dict:
            "only_test_seconds": test_wall,
            "checkpoint_round_trip": "bit-equal",
            "stage_seconds": stage_seconds,
-           "train_step_vs_cpu": check}
+           ("train_step_vs_cpu" if run["check"] is not None
+            else "head_grads_vs_cpu"): check}
     log(json.dumps({"train_path": out}))
     return out
 
@@ -1410,14 +1796,18 @@ def main() -> int:
     k1 = timed("K1", phase_k1)
     k2 = timed("K2", phase_k2)
     evals = {name: timed(name, phase_main_path, name) for name in PATHS}
+    evals.update({name: timed(name, phase_uncached_path, name)
+                  for name in UNCACHED_PATHS})
+    timed("uncached=cached", phase_uncached_equals_cached)
     trains = {name: timed(name, phase_train_path, name)
               for name in TRAIN_PATHS}
     log(json.dumps({"phase_seconds": seconds}))
     for k, entry in (("K1", k1), ("K2", k2)):
         entry["launches_by_path"] = {
             **{name: r["launches"][k] for name, r in evals.items()},
-            **{name: r["launches"][f"{k}_train"]
-               for name, r in trains.items()}}
+            **{f"{name} ({stage})": r["launches"][f"{k}_{stage}"]
+               for name, r in trains.items()
+               for stage in ("train", "val", "only_test")}}
     k1["launches"] = evals["clipspm"]["launches"]["K1"]
     k2["launches"] = evals["ta2n"]["launches"]["K2"]
     log(json.dumps({"kernels": [k1, k2]}))

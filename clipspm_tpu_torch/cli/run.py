@@ -10,12 +10,17 @@ visible the run raises rather than carrying on on the CPU). With
 ``TEST.ONLY_TEST=false`` it trains (``Conduct Training:``), validating
 through the feature cache every ``TRAIN.VAL_FREQ`` episodes and saving
 ``checkpoint_best`` and ``checkpoint_iter_N``; with ``TEST.ONLY_TEST=true``
-it restores ``TEST.TEST_MODEL_PATH`` or ``checkpoint_best`` (when present)
-and runs the ``TEST.CACHE_FEATURES`` test protocol. It trains and tests the
-ported heads, clipspm (RN50 and ViT towers) and ta2n. What the port does not
-carry yet (the other heads, the uncached evaluator, several GPUs, the remat
-policies ``attn`` and ``mlp``) raises ``NotImplementedError`` naming its
-ROADMAP item before anything is built.
+validating every ``TRAIN.VAL_FREQ`` episodes (through the feature cache
+with ``TEST.CACHE_FEATURES``, else uncached at ``TEST.EVAL_BATCH`` episodes
+a step) and saving ``checkpoint_best`` and ``checkpoint_iter_N``; with
+``TEST.ONLY_TEST=true`` it restores ``TEST.TEST_MODEL_PATH`` or
+``checkpoint_best`` (when present) and runs the test protocol, through the
+feature cache with ``TEST.CACHE_FEATURES``, else uncached. A model the cache
+cannot serve falls back to the uncached evaluator with a warning line. It
+trains and tests the ported heads: clipspm, clipfsar, sten and cpm2c (RN50
+and ViT towers) and ta2n. What the port does not carry yet (the other heads,
+several GPUs, the remat policies ``attn`` and ``mlp``) raises
+``NotImplementedError`` naming its ROADMAP item before anything is built.
 """
 
 from __future__ import annotations
@@ -44,31 +49,30 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to clipspm_tpu_torch yet (ROADMAP.md, open "
-        f"item '{item}'); run it with clipspm_tpu")
-
-
 def _refuse_what_is_not_carried(cfg) -> None:
     from clipspm_tpu_torch.models.fsar import check_model_config
+    from clipspm_tpu_torch.train.learner import accum_dtype
     from clipspm_tpu_torch.train.setup import check_num_chips
 
     check_num_chips(cfg)
     check_model_config(cfg)
-    cached = bool(cfg.TEST.get("CACHE_FEATURES", False))
-    if cfg.TEST.ONLY_TEST:
-        if not cached:
-            raise _not_ported("the uncached evaluator", "uncached evaluator")
-        return
-    val_freq = int(cfg.TRAIN.VAL_FREQ or 0)
-    if not cached and val_freq and val_freq < int(cfg.TRAIN.TRAIN_EPISODES):
-        raise _not_ported("validation through the uncached evaluator",
-                          "uncached evaluator")
+    accum_dtype(cfg)
+
+
+def _cached_evaluator(cfg, learner, catalog, sampler, log, what: str):
+    """The feature-cached evaluator, or None after a warning line when the
+    model or the protocol cannot use it (its ``ValueError``)."""
+    from clipspm_tpu_torch.train.feature_cache import cached_evaluator
+
+    try:
+        return cached_evaluator(cfg, learner, catalog, sampler, log_fn=log)
+    except ValueError as e:
+        log(f"WARNING: TEST.CACHE_FEATURES ignored{what} — {e}")
+        return None
 
 
 def main(argv=None) -> dict:
-    """Trains, or runs the cached test protocol; returns the result dict
+    """Trains, or runs the test protocol; returns the result dict
     (``Learner.run``'s, or the evaluator's)."""
     args = parse_args(argv)
     from clipspm_tpu_torch import resolve_device
@@ -90,8 +94,6 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
 
     from clipspm_tpu_torch.train.checkpoint import CheckpointManager
-    from clipspm_tpu_torch.train.feature_cache import (FeatureCachedEvaluator,
-                                                       evaluate_cached)
     from clipspm_tpu_torch.train.setup import (build_catalog_and_sampler,
                                                build_learner)
     from clipspm_tpu_torch.utils.metrics import MetricsWriter
@@ -117,6 +119,8 @@ def main(argv=None) -> dict:
         # JSONL, and TensorBoard event files when tensorboard imports
         metrics = MetricsWriter(os.path.join(ckpt_dir, "metrics.jsonl"),
                                 tb_dir=os.path.join(ckpt_dir, "tb"))
+        eval_batch = max(1, int(cfg.TEST.get("EVAL_BATCH", 1) or 1))
+        cached = bool(cfg.TEST.get("CACHE_FEATURES", False))
         try:
             catalog, sampler = build_catalog_and_sampler(
                 cfg, "test", False, int(cfg.TEST.QUERY_PER_CLASS))
@@ -134,8 +138,18 @@ def main(argv=None) -> dict:
                     # like a real result otherwise
                     log(f"WARNING: no 'best' checkpoint under {ckpt_dir} — "
                         "evaluating the FRESH (untrained) model")
-                res = evaluate_cached(cfg, learner, catalog=catalog,
-                                      sampler=sampler, log_fn=log)
+                ev = (_cached_evaluator(cfg, learner, catalog, sampler, log,
+                                        "") if cached else None)
+                if ev is not None:
+                    # the test loader's prefetch goes unused
+                    learner.test_source.close()
+                    try:
+                        res = ev.evaluate(int(cfg.TEST.TEST_EPISODES))
+                    finally:
+                        ev.close()
+                else:
+                    res = learner.evaluate(int(cfg.TEST.TEST_EPISODES),
+                                           batch_size=eval_batch)
                 log(f"{cfg.DATA.DATASET}: {res['accuracy']:.2f} "
                     f"+/- {res['confidence']:.2f} (loss {res['loss']:.4f})")
                 metrics.scalars({
@@ -145,24 +159,21 @@ def main(argv=None) -> dict:
                 log("Conduct Training:")
                 # one evaluator for every validation: its seeded sampler
                 # stream continues across vals, and each val re-encodes the
-                # table at the current weights
-                val = None
-                if cfg.TEST.get("CACHE_FEATURES", False):
-                    val = FeatureCachedEvaluator(
-                        learner, catalog, sampler,
-                        encode_videos_per_step=int(
-                            cfg.TEST.get("CACHE_ENCODE_VIDEOS", 30) or 30),
-                        eval_batch=int(cfg.TEST.get("CACHE_EVAL_BATCH", 64)
-                                       or 64),
-                        num_decode_workers=int(cfg.DATA.NUM_WORKERS),
-                        log_fn=log)
+                # table at the current weights; without one, validation
+                # runs uncached over the test loader
+                val = (_cached_evaluator(cfg, learner, catalog, sampler, log,
+                                         " for training validations")
+                       if cached else None)
+                if val is not None:
+                    # the test loader's workers would idle for the whole run
+                    learner.test_source.close()
                 try:
                     res = learner.run(
                         checkpoint_fn=lambda ep, acc: manager.save(
                             learner, "best", best_acc=acc),
                         periodic_checkpoint_fn=lambda ep: manager.save(
                             learner, f"iter_{ep}"),
-                        metrics=metrics,
+                        metrics=metrics, eval_batch_size=eval_batch,
                         val_fn=val.evaluate if val is not None else None)
                 finally:
                     if val is not None:

@@ -1,7 +1,8 @@
-"""Shared model blocks used by the clipspm head.
+"""Shared model blocks of the CLIP heads.
 
-Port of the parts of ``clipspm_tpu/models/blocks.py`` that clipspm uses:
-the episodic metric utilities and the pre-norm cross-attention transformer.
+Port of the parts of ``clipspm_tpu/models/blocks.py`` that clipspm,
+clipfsar, sten and cpm2c use: the episodic metric utilities and the pre-norm
+cross-attention transformer; and the heads' OTAM call.
 Module and parameter names follow the JAX parameter tree (``fc1``, ``to_q``,
 ``norm_0`` ...) so ``weights.py`` maps one onto the other by name.
 """
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.otam import otam_distance
 from ..utils.precision import fp32_or_wider
 
 
@@ -22,6 +24,16 @@ def cos_sim(x: torch.Tensor, y: torch.Tensor, epsilon: float = 0.01
     xn = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     yn = torch.linalg.vector_norm(y, dim=-1, keepdim=True)
     return num / (torch.matmul(xn, yn.transpose(-1, -2)) + epsilon)
+
+
+def otam_fp32(support: torch.Tensor, query: torch.Tensor,
+              bidirectional: bool, lbda: float = 0.5) -> torch.Tensor:
+    """``otam_distance`` over fp32 (or fp64) features with autocast off:
+    the DP and its cosine table take no bf16 matmul (on the GPU one launch
+    of kernel K1's fused mode)."""
+    with torch.autocast(support.device.type, enabled=False):
+        return otam_distance(fp32_or_wider(support), fp32_or_wider(query),
+                             lbda=lbda, bidirectional=bidirectional)
 
 
 def class_prototypes(features: torch.Tensor, labels: torch.Tensor,

@@ -16,9 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.otam import otam_distance
 from ...utils.precision import fp32_or_wider
-from ..blocks import FeedForward, TransformerV1, class_prototypes, group_by_class
+from ..blocks import (FeedForward, TransformerV1, class_prototypes,
+                      group_by_class, otam_fp32)
 
 
 def _dis(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -96,11 +96,7 @@ class CLIPSPM(nn.Module):
         return _dis(new_qm, qu_tok[:, 0, :]) + _dis(new_sm, su_tok[:, 0, :])
 
     def _otam(self, support, query):
-        # the DP takes fp32 tables: no bf16 matmul inside the cosine table
-        with torch.autocast(support.device.type, enabled=False):
-            return otam_distance(fp32_or_wider(support),
-                                 fp32_or_wider(query), lbda=0.5,
-                                 bidirectional=not self.single_direct)
+        return otam_fp32(support, query, not self.single_direct)
 
     def _sem(self, su, qu, su_l, context_support, target_context_support):
         """SPM semantic prototype modulation."""

@@ -1,10 +1,12 @@
-"""Visual-tower construction helpers (leaf module: no head imports)."""
+"""Visual-tower helpers (leaf module: no head imports): the compute
+contexts, the chunked and rematerialised encode, and ``CLIPVideoModel``, the
+CLIP tower plus per-frame features that every CLIP head's model shares."""
 
 from __future__ import annotations
 
 import functools
 from contextlib import nullcontext
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -66,6 +68,12 @@ def compute_autocast(device: torch.device,
     return torch.autocast(device.type, dtype=compute_dtype)
 
 
+def fp32_context(device: torch.device):
+    """Autocast off: what the JAX package computes from fp32 casts (cosine
+    tables, class logits, the DPs' inputs) stays fp32 under ``USE_AMP``."""
+    return torch.autocast(device.type, enabled=False)
+
+
 def encode_chunked(backbone: nn.Module, frames: torch.Tensor, chunk: int,
                    train_chunk: int = 0,
                    remat_policy: str = "attn_out") -> torch.Tensor:
@@ -101,3 +109,63 @@ def encode_chunked(backbone: nn.Module, frames: torch.Tensor, chunk: int,
         return backbone(frames)
     return torch.cat([backbone(frames[i:i + chunk])
                       for i in range(0, N, chunk)], dim=0)
+
+
+class CLIPVideoModel(nn.Module):
+    """A CLIP visual tower (``backbone``) feeding a matching head over
+    per-frame features; the head is the subclass's ``match_features``.
+
+    Shapes (S=way*shot, Q=way*queries, T=seq_len, C=classes in the split):
+        support_images: ``[S, T, H, W, 3]`` float (0-1)
+        target_images: ``[Q, T, H, W, 3]``
+        support_labels: ``[S]`` episode-relative
+        real_support_labels / real_target_labels: ``[S]`` / ``[Q]``
+            dataset-level (text-table rows)
+        text_train / text_test: ``[C, D]`` class-text tables
+    The train/test table follows ``self.training``.
+    """
+
+    def __init__(self, arch, encode_chunk: int = 0,
+                 train_encode_chunk: int = 0,
+                 train_remat_policy: str = "attn_out",
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.arch = arch
+        # frames per tower call in evaluation; in training (a ViT tower
+        # only) frames per rematerialised chunk: 0 off, 1 the eval width
+        self.encode_chunk = encode_chunk
+        self.train_encode_chunk = train_encode_chunk
+        self.train_remat_policy = train_remat_policy
+        self.compute_dtype = compute_dtype
+        self.backbone = make_clip_visual(arch)
+
+    def forward(self, support_images, target_images, support_labels,
+                real_support_labels, real_target_labels, text_train,
+                text_test) -> Dict[str, torch.Tensor]:
+        S, Q = support_images.shape[0], target_images.shape[0]
+        feats = self.encode(torch.cat([support_images, target_images], dim=0))
+        return self.match_features(feats[:S], feats[S:S + Q], support_labels,
+                                   real_support_labels, real_target_labels,
+                                   text_train, text_test)
+
+    def feature_cacheable(self) -> bool:
+        """Per-video features fully determine the head's inputs
+        (train/feature_cache.py)."""
+        return True
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """``[N, T, H, W, 3]`` frames -> ``[N, T, D]`` per-frame features."""
+        N, T = images.shape[:2]
+        flat = images.reshape((N * T,) + tuple(images.shape[2:]))
+        with compute_autocast(images.device, self.compute_dtype):
+            feats = encode_chunked(self.backbone, flat, self.encode_chunk,
+                                   self.train_encode_chunk,
+                                   self.train_remat_policy)
+        return feats.reshape(N, T, feats.shape[-1])
+
+    def match_features(self, su, qu, support_labels, real_support_labels,
+                       real_target_labels, text_train, text_test
+                       ) -> Dict[str, torch.Tensor]:
+        """The head over precomputed features ``su [S,T,D]`` /
+        ``qu [Q,T,D]``."""
+        raise NotImplementedError

@@ -225,8 +225,9 @@ class FeatureCachedEvaluator:
                     real_sup[e], real_tgt[e], learner.text_train,
                     learner.text_test)
                 batch.append(torch.stack(loss_and_acc(
-                    learner.model_name, out, tgt_labels[e],
-                    learner.tasks_per_batch)))
+                    learner.model_name, out, tgt_labels[e], real_sup[e],
+                    real_tgt[e], learner.tasks_per_batch, cfg=learner.cfg,
+                    train=False)))
             loss_acc = torch.stack(batch).cpu().numpy()
             losses.extend(loss_acc[:, 0].tolist())
             accs.extend(loss_acc[:, 1].tolist())
@@ -256,6 +257,20 @@ class FeatureCachedEvaluator:
         self._pool.shutdown(wait=False, cancel_futures=True)
 
 
+def cached_evaluator(cfg, learner: Learner, catalog, sampler: EpisodeSampler,
+                     log_fn: Callable[[str], None] = print
+                     ) -> FeatureCachedEvaluator:
+    """The config's evaluator (``TEST.CACHE_ENCODE_VIDEOS``,
+    ``TEST.CACHE_EVAL_BATCH``, ``DATA.NUM_WORKERS``); raises
+    ``ValueError`` where the model or the protocol cannot be cached."""
+    return FeatureCachedEvaluator(
+        learner, catalog, sampler,
+        encode_videos_per_step=int(
+            cfg.TEST.get("CACHE_ENCODE_VIDEOS", 30) or 30),
+        eval_batch=int(cfg.TEST.get("CACHE_EVAL_BATCH", 64) or 64),
+        num_decode_workers=int(cfg.DATA.NUM_WORKERS), log_fn=log_fn)
+
+
 def evaluate_cached(cfg, learner: Learner, *, n_episodes: Optional[int] = None,
                     catalog=None, sampler: Optional[EpisodeSampler] = None,
                     log_fn: Callable[[str], None] = print) -> Dict[str, float]:
@@ -269,13 +284,7 @@ def evaluate_cached(cfg, learner: Learner, *, n_episodes: Optional[int] = None,
             cfg, "test", False, int(cfg.TEST.QUERY_PER_CLASS))
     n = int(n_episodes if n_episodes is not None
             else cfg.TEST.TEST_EPISODES)
-    ev = FeatureCachedEvaluator(
-        learner, catalog, sampler,
-        encode_videos_per_step=int(
-            cfg.TEST.get("CACHE_ENCODE_VIDEOS", 30) or 30),
-        eval_batch=int(cfg.TEST.get("CACHE_EVAL_BATCH", 64) or 64),
-        num_decode_workers=int(cfg.DATA.NUM_WORKERS),
-        log_fn=log_fn)
+    ev = cached_evaluator(cfg, learner, catalog, sampler, log_fn=log_fn)
     try:
         return ev.evaluate(n)
     finally:

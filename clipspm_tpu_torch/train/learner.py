@@ -1,16 +1,21 @@
-"""The trainer: a built model, its optimizer and the episodic train loop.
+"""The trainer and the uncached evaluator: a built model, its optimizer,
+the episodic train loop and the test protocol.
 
 Port of ``clipspm_tpu/train/learner.py`` (``TrainState``,
-``_train_step_impl``, ``train_episodes``, ``run``). One optimizer step takes
-``TASKS_PER_BATCH`` episodes: each real episode runs its forward and
-backward with the same weights and the gradients sum in ``.grad`` (the JAX
-package sums them in a ``lax.scan``); then one optimizer step. A padding
-episode (past ``n_valid``) runs no forward at all, which is what the JAX
-step's zero weight does to its gradient, BatchNorm statistics, metrics and
-episode count. Frames are transformed on the device, drawn from the
-learner's own seeded ``torch.Generator``; dropout draws from the device's
-default generator, seeded from ``MODEL.SEED``. The uncached evaluator is
-not ported (ROADMAP.md); ``run`` validates through ``val_fn``.
+``_train_step_impl``, ``train_episodes``, ``evaluate``, ``run``). One
+optimizer step takes ``TASKS_PER_BATCH`` episodes: each real episode runs its
+forward and backward with the same weights and the gradients sum in
+``.grad`` (the JAX package sums them in a ``lax.scan``; with
+``SOLVER.ACCUM_DTYPE: bfloat16`` the sum is kept in bf16 and cast to fp32
+for the step, as there); then one optimizer step. A padding episode (past
+``n_valid``) runs no forward at all, which is what the JAX step's zero
+weight does to its gradient, BatchNorm statistics, metrics and episode
+count. Frames are transformed on the device, drawn from the learner's own
+seeded ``torch.Generator``; dropout draws from the device's default
+generator, seeded from ``MODEL.SEED``. ``evaluate`` runs ``batch_size``
+episodes a step from the test stream, one after another as the JAX
+package's ``lax.map`` does; ``run`` validates through it unless it is
+given a ``val_fn`` (the feature cache).
 """
 
 from __future__ import annotations
@@ -30,23 +35,34 @@ from .losses import loss_and_acc
 from .optim import make_optimizer
 
 
-def _not_ported_evaluator() -> NotImplementedError:
-    return NotImplementedError(
-        "the uncached evaluator is not ported to clipspm_tpu_torch yet "
-        "(ROADMAP.md, open item 'uncached evaluator'); validate through the "
-        "feature cache (TEST.CACHE_FEATURES=true)")
+def accum_dtype(cfg) -> Optional[torch.dtype]:
+    """``SOLVER.ACCUM_DTYPE``: None for fp32 (the default), ``bfloat16``
+    for a bf16 sum of the episodes' gradients; any other value raises."""
+    accum = str(cfg.get("SOLVER", {}).get("ACCUM_DTYPE", "float32")
+                or "float32")
+    if accum not in ("float32", "bfloat16"):
+        raise ValueError(f"SOLVER.ACCUM_DTYPE must be float32 or "
+                         f"bfloat16, got {accum!r}")
+    return torch.bfloat16 if accum == "bfloat16" else None
+
+
+def _reseed(seed: int, episode: int) -> int:
+    """A generator seed from ``MODEL.SEED`` and an episode count."""
+    return int(np.random.SeedSequence([seed, episode]).generate_state(1)[0])
 
 
 class Learner:
-    """Config-driven trainer over an episode stream, and the evaluator's
-    view of the model (``train/feature_cache.py``)."""
+    """Config-driven trainer and evaluator over episode streams, and the
+    feature cache's view of the model (``train/feature_cache.py``)."""
 
     def __init__(self, cfg, model: nn.Module, text_train: torch.Tensor,
                  text_test: torch.Tensor, device: torch.device,
                  transform: Optional[TransformSpec] = None,
                  build_seconds: Optional[Dict[str, float]] = None,
-                 train_source=None, log_fn: Callable[[str], None] = print):
+                 train_source=None, test_source=None,
+                 log_fn: Callable[[str], None] = print):
         self.cfg = cfg
+        self.accum_dtype = accum_dtype(cfg)
         self.model_name = cfg.MODEL.NAME
         self.tasks_per_batch = int(cfg.TRAIN.TASKS_PER_BATCH)
         self.device = device
@@ -57,21 +73,26 @@ class Learner:
         # wall seconds of each build stage (model init, text tables, ...)
         self.build_seconds = dict(build_seconds or {})
         self.train_source = train_source
+        self.test_source = test_source
         self.log = log_fn
         self.optimizer, self.scheduler = make_optimizer(
             cfg, self.model.parameters())
         self.episode = 0                       # episodes consumed
-        seed = int(cfg.MODEL.SEED)
-        self.gen = torch.Generator(device=device).manual_seed(seed)
-        if device.type == "cuda":
-            with torch.cuda.device(device):
-                torch.cuda.manual_seed(seed)
-        else:
-            torch.manual_seed(seed)
+        self.gen = torch.Generator(device=device)
+        self._seed(int(cfg.MODEL.SEED))
         self._copy_stream = (torch.cuda.Stream(device=device)
                              if device.type == "cuda" else None)
 
     # -- state ---------------------------------------------------------------
+
+    def _seed(self, seed: int) -> None:
+        """Seed the transform generator and the device's dropout one."""
+        self.gen.manual_seed(seed)
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                torch.cuda.manual_seed(seed)
+        else:
+            torch.manual_seed(seed)
 
     def _dropout_rng(self) -> torch.Tensor:
         if self.device.type == "cuda":
@@ -90,7 +111,11 @@ class Learner:
     def load_state_dict(self, state: dict) -> None:
         """Restore :meth:`state_dict`. A model tree that differs in keys or
         shapes raises before anything changes (``nn.Module.load_state_dict``
-        would copy the matching tensors first)."""
+        would copy the matching tensors first). Generator states saved on
+        another kind of device (a CUDA state is 16 bytes, a CPU one 5056)
+        are not restored: everything else is, and both generators are
+        reseeded from ``MODEL.SEED`` and the restored episode count, with a
+        log line saying so."""
         mine = self.model.state_dict()
         theirs = state["model"]
         bad = sorted(set(mine) ^ set(theirs)) + sorted(
@@ -99,15 +124,27 @@ class Learner:
         if bad:
             raise RuntimeError(f"model state differs in {len(bad)} keys or "
                                f"shapes, e.g. {bad[:3]}")
+        same_device = all(
+            state[key].numel() == ours.numel() for key, ours in (
+                ("transform_rng", self.gen.get_state()),
+                ("dropout_rng", self._dropout_rng())))
         self.model.load_state_dict(theirs)
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.episode = int(state["episode"])
-        self.gen.set_state(state["transform_rng"])
-        if self.device.type == "cuda":
-            torch.cuda.set_rng_state(state["dropout_rng"], self.device)
+        if same_device:
+            self.gen.set_state(state["transform_rng"])
+            if self.device.type == "cuda":
+                torch.cuda.set_rng_state(state["dropout_rng"], self.device)
+            else:
+                torch.set_rng_state(state["dropout_rng"])
         else:
-            torch.set_rng_state(state["dropout_rng"])
+            seed = _reseed(int(self.cfg.MODEL.SEED), self.episode)
+            self._seed(seed)
+            self.log(f"checkpoint generator states are of another device "
+                     f"type than {self.device.type}: transform and dropout "
+                     f"generators reseeded ({seed}) from MODEL.SEED and "
+                     f"episode {self.episode}")
         self.text_train = state["text_train"].to(self.device)
         self.text_test = state["text_test"].to(self.device)
 
@@ -136,17 +173,18 @@ class Learner:
             batch.map(lambda x: x.record_stream(stream))
         return batch
 
-    def _episode_loss(self, ep: Episode):
+    def _episode_loss(self, ep: Episode, train: bool = True):
         t = self.transform
         frames = [episode_device_transform(
-            images, train=True, img_size=t.img_size, resize_to=t.resize_to,
+            images, train=train, img_size=t.img_size, resize_to=t.resize_to,
             flip=t.flip, normalize=t.normalize, gen=self.gen)
             for images in (ep.support_images, ep.target_images)]
         out = self.model(frames[0], frames[1], ep.support_labels,
                          ep.real_support_labels, ep.real_target_labels,
                          self.text_train, self.text_test)
         return loss_and_acc(self.model_name, out, ep.target_labels,
-                            self.tasks_per_batch, train=True)
+                            ep.real_support_labels, ep.real_target_labels,
+                            self.tasks_per_batch, cfg=self.cfg, train=train)
 
     def _step(self, batch: Episode, n_valid: int) -> Dict[str, torch.Tensor]:
         """One optimizer step over the first ``n_valid`` episodes of a
@@ -154,6 +192,8 @@ class Learner:
         if not self.model.training:
             self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        params = list(self.model.parameters())
+        acc_grads = None
         loss_sum = torch.zeros((), device=self.device)
         acc_sum = torch.zeros((), device=self.device)
         for e in range(n_valid):
@@ -161,9 +201,20 @@ class Learner:
             # outside the model's autocast blocks: each op's backward runs
             # in the dtype its forward ran in (K1's replay in fp32)
             loss.backward()
+            if self.accum_dtype is not None:
+                # the episode's gradient, rounded, joins the bf16 sum
+                grads = [None if p.grad is None
+                         else p.grad.to(self.accum_dtype) for p in params]
+                acc_grads = grads if acc_grads is None else [
+                    a if g is None else g if a is None else a + g
+                    for a, g in zip(acc_grads, grads)]
+                self.optimizer.zero_grad(set_to_none=True)
             loss_sum += loss.detach()
             acc_sum += acc
-        for p in self.model.parameters():
+        if acc_grads is not None:
+            for p, g in zip(params, acc_grads):
+                p.grad = None if g is None else g.to(p.dtype)
+        for p in params:
             if p.grad is None:
                 # the JAX chain decays every parameter, used or not
                 p.grad = torch.zeros_like(p)
@@ -183,12 +234,79 @@ class Learner:
         batch = self._ready(*self._to_device(episodes[:n])) if n else None
         return {k: float(v) for k, v in self._step(batch, n).items()}
 
-    def evaluate(self, n_episodes: int, **kwargs):
-        raise _not_ported_evaluator()
+    @torch.no_grad()
+    def _eval_batch(self, batch: Episode, n: int) -> torch.Tensor:
+        """``[n, 2]`` (loss, accuracy) of the first ``n`` episodes of a
+        device batch, one episode after another (unfetched)."""
+        return torch.stack([
+            torch.stack([x.float() for x in self._episode_loss(
+                batch[e], train=False)]) for e in range(n)])
+
+    def evaluate(self, n_episodes: int, source=None,
+                 batch_size: int = 1) -> Dict[str, float]:
+        """The test protocol over ``n_episodes`` of ``source`` (the test
+        stream by default, which continues across calls): the model in eval
+        mode, the deterministic eval transform, ``batch_size`` episodes a
+        step. A staging thread stacks and copies batch i+1 while the device
+        runs batch i; the results of batch i are fetched after batch i+1
+        has been issued. A trailing partial batch runs only its real
+        episodes (the JAX package pads it with duplicates and trims their
+        results). Returns mean accuracy (%), its ``196*std/sqrt(n)`` CI,
+        mean loss, and the wall and host-stall seconds."""
+        it = iter(source or self.test_source)
+        batch_size = max(1, int(batch_size))
+        self.model.eval()
+
+        def stage(n):
+            return self._to_device([next(it) for _ in range(n)]), n
+
+        results: List[np.ndarray] = []
+        stager = _cf.ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="clipspm-eval")
+        pending = None
+        stall_s, t0 = 0.0, time.perf_counter()
+        try:
+            done = 0
+            if n_episodes > 0:
+                fut = stager.submit(stage, min(batch_size, n_episodes))
+            while done < n_episodes:
+                t_w = time.perf_counter()
+                (batch, ready), n = fut.result()
+                stall_s += time.perf_counter() - t_w
+                done += n
+                if done < n_episodes:
+                    fut = stager.submit(stage,
+                                        min(batch_size, n_episodes - done))
+                m = self._eval_batch(self._ready(batch, ready), n)
+                del batch
+                if pending is not None:
+                    results.append(pending.cpu().numpy())
+                pending = m
+            if pending is not None:
+                results.append(pending.cpu().numpy())
+        finally:
+            stager.shutdown(wait=False, cancel_futures=True)
+        seconds = time.perf_counter() - t0
+        # float64 statistics of the fp32 values, as the JAX evaluator's
+        loss_acc = (np.concatenate(results) if results
+                    else np.zeros((0, 2))).astype(np.float64)
+        accs = loss_acc[:, 1]
+        self.log(f"uncached eval: {n_episodes} episodes in batches of "
+                 f"{batch_size} — {seconds:.1f}s "
+                 f"({n_episodes / max(seconds, 1e-9):.2f} eps/s, host-stall "
+                 f"{100.0 * stall_s / max(seconds, 1e-9):.0f}%)")
+        return {
+            "accuracy": float(accs.mean() * 100.0),
+            "confidence": float(196.0 * accs.std() / np.sqrt(len(accs))),
+            "loss": float(loss_acc[:, 0].mean()),
+            "seconds": seconds,
+            "host_stall_seconds": stall_s,
+        }
 
     def close(self) -> None:
-        if self.train_source is not None:
-            self.train_source.close()
+        for source in (self.train_source, self.test_source):
+            if source is not None:
+                source.close()
 
     # -- the train loop ------------------------------------------------------
 
@@ -198,12 +316,13 @@ class Learner:
             print_freq: Optional[int] = None,
             checkpoint_fn: Optional[Callable[[int, float], None]] = None,
             periodic_checkpoint_fn: Optional[Callable[[int], None]] = None,
-            metrics=None,
+            metrics=None, eval_batch_size: int = 1,
             val_fn: Optional[Callable[[int], Dict[str, float]]] = None
             ) -> Dict[str, float]:
         """Train to ``TRAIN.TRAIN_EPISODES`` with windowed logs, validation
-        through ``val_fn`` every ``VAL_FREQ`` episodes (a new best calls
-        ``checkpoint_fn``) and ``periodic_checkpoint_fn`` every
+        every ``VAL_FREQ`` episodes through ``val_fn``, or, without one,
+        :meth:`evaluate` at ``eval_batch_size`` (a new best calls
+        ``checkpoint_fn``), and ``periodic_checkpoint_fn`` every
         ``SAVE_FREQ``.
 
         A staging thread stacks and copies batch i+1 while the device runs
@@ -222,8 +341,9 @@ class Learner:
         print_freq = print_freq or int(cfg.TRAIN.PRINT_FREQ)
         save_freq = int(cfg.get("CHECKPOINT", {}).get("SAVE_FREQ", 0) or 0)
         tpb = self.tasks_per_batch
-        if val_fn is None and val_freq and total > val_freq:
-            raise _not_ported_evaluator()
+        if val_fn is None:
+            def val_fn(n):
+                return self.evaluate(n, batch_size=eval_batch_size)
 
         it = iter(self.train_source)
         best_acc = 0.0

@@ -8,8 +8,10 @@ evaluation refuses to run unless random weights are explicitly allowed.
 Heads that are not CLIP heads (``ta2n``) build no CLIP model and no text
 tables: their tables are ``[1, 1]`` zeros and their trunk starts from the
 seeded random init, as in the JAX package (which loads no ImageNet weights).
-A training run (``TEST.ONLY_TEST`` false) also gets the train split's
-prefetching ``EpisodeLoader``, seeded with ``MODEL.SEED``.
+Every run gets the test split's prefetching ``EpisodeLoader``, seeded with
+``MODEL.SEED + 1`` (the uncached evaluator's stream); a training run
+(``TEST.ONLY_TEST`` false) also gets the train split's, seeded with
+``MODEL.SEED``.
 """
 
 from __future__ import annotations
@@ -178,10 +180,21 @@ def has_restorable_checkpoint(cfg) -> bool:
 
 
 def check_num_chips(cfg) -> None:
-    if int((cfg.get("DEVICE", {}) or {}).get("NUM_CHIPS", 1) or 1) > 1:
-        raise NotImplementedError(
-            "DEVICE.NUM_CHIPS > 1 is not ported yet (ROADMAP.md, open item "
-            "'DDP')")
+    """``DEVICE.NUM_CHIPS`` and ``DEVICE.TP`` (1 when unset): below 1
+    raises ``ValueError`` (as the JAX package's mesh does for negative
+    values; its ``or 1`` reads 0 as 1, the port refuses it), above 1 is not
+    ported."""
+    device = cfg.get("DEVICE", {}) or {}
+    n_dp, n_tp = (int(1 if device.get(k) is None else device.get(k))
+                  for k in ("NUM_CHIPS", "TP"))
+    if n_dp < 1 or n_tp < 1:
+        raise ValueError(f"DEVICE.NUM_CHIPS={n_dp} / DEVICE.TP={n_tp} must "
+                         "be >= 1")
+    for key, n in (("NUM_CHIPS", n_dp), ("TP", n_tp)):
+        if n > 1:
+            raise NotImplementedError(
+                f"DEVICE.{key} > 1 is not ported yet (ROADMAP.md, open item "
+                "'DDP')")
 
 
 def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
@@ -200,9 +213,9 @@ def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
 
 def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
                   device=None) -> Learner:
-    """Model + weights + text tables (CLIP heads only) + transform, and for
-    a training run the train ``EpisodeLoader``, on ``device`` (``cuda``
-    unless the caller asks for the CPU).
+    """Model + weights + text tables (CLIP heads only) + transform, the test
+    ``EpisodeLoader`` and, for a training run, the train one, on ``device``
+    (``cuda`` unless the caller asks for the CPU).
 
     ``allow_random_weights`` (CLI ``--allow-random-weights`` or cfg
     ``MODEL.ALLOW_RANDOM_WEIGHTS``) permits evaluating a CLIP head without
@@ -224,17 +237,20 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
         log_fn(f"build_learner: {stage} in {now - t0:.1f}s")
         t0 = now
 
+    def make_loader(mode: str, train: bool, queries: int) -> EpisodeLoader:
+        _, sampler = build_catalog_and_sampler(cfg, mode, train, queries)
+        return EpisodeLoader(sampler, num_workers=int(cfg.DATA.NUM_WORKERS),
+                             prefetch=loader_prefetch(cfg, train))
+
     def learner(text_train, text_test):
-        loader = None
-        if not bool(cfg.TEST.ONLY_TEST):
-            _, sampler = build_catalog_and_sampler(
-                cfg, "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
-            loader = EpisodeLoader(sampler,
-                                   num_workers=int(cfg.DATA.NUM_WORKERS),
-                                   prefetch=loader_prefetch(cfg, True))
-            mark("loaders")
+        test_loader = make_loader("test", False,
+                                  int(cfg.TEST.QUERY_PER_CLASS))
+        train_loader = None if bool(cfg.TEST.ONLY_TEST) else make_loader(
+            "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
+        mark("loaders")
         return Learner(cfg, model, text_train, text_test, dev,
-                       build_seconds=build_seconds, train_source=loader,
+                       build_seconds=build_seconds,
+                       train_source=train_loader, test_source=test_loader,
                        log_fn=log_fn)
 
     gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED))

@@ -51,7 +51,7 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     default), norms at identity with running stats (0, 1), embeddings and
     CLIP's extra parameters at the JAX package's scales (the ViT tower's
     class and positional embeddings and ``proj`` at ``width**-0.5 N(0,
-    1)``), scalar gains at 1;
+    1)``), scalar gains at 1, cpm2c's class tokens at ``N(0, 1)``;
     TA2N's ``loc_fc2`` at a zero kernel and bias ``[2, 0]`` and ``mv_fc2``
     at zero, as the JAX package initialises them.
     """
@@ -90,8 +90,11 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             mod.mv_fc2.weight.zero_()
             mod.mv_fc2.bias.zero_()
     for name, p in model.named_parameters():
-        if p.dim() == 0 and name.rsplit(".", 1)[-1] in ("mo_alpha1", "scale"):
+        leaf = name.rsplit(".", 1)[-1]
+        if p.dim() == 0 and leaf in ("mo_alpha1", "scale"):
             p.fill_(1.0)
+        elif leaf in ("class_token", "class_token_motion"):
+            _normal_(p, 1.0, gen)
     return model
 
 
@@ -280,17 +283,22 @@ def ta2n_state_dict(variables: Mapping[str, Any]) -> StateDict:
 
 def model_state_dict(variables: Mapping[str, Any]) -> StateDict:
     """JAX model variables -> the port's state dict, by the model the tree
-    is of: ``CLIPSPMModel`` (``backbone`` + ``head``) or ``TA2NModel``
-    (``backbone`` + ``ttm`` + ``acm``)."""
+    is of: ``TA2NModel`` (``backbone`` + ``ttm`` + ``acm``), or a CLIP
+    model: ``backbone`` (the CLIP tower) plus ``head`` (``CLIPSPMModel``)
+    or the head's own top-level parameters (clipfsar, sten, cpm2c)."""
     params = variables["params"]
     if "ttm" in params:
         return ta2n_state_dict(variables)
-    if "head" not in params:
+    if "backbone" not in params:
         raise NotImplementedError(
             f"no port of a model with parameters {sorted(params)}; the port "
-            "carries clipspm and ta2n")
+            "carries clipspm, clipfsar, sten, cpm2c and ta2n")
     stats = variables.get("batch_stats", {})
     out = visual_state_dict(params["backbone"], stats.get("backbone", {}),
                             prefix="backbone.")
-    out.update(head_state_dict(params["head"], prefix="head."))
+    if "head" in params:
+        out.update(head_state_dict(params["head"], prefix="head."))
+    else:
+        out.update(head_state_dict(
+            {k: v for k, v in params.items() if k != "backbone"}))
     return out

@@ -85,7 +85,8 @@ def test_loss_and_accuracy_match_jax(name):
         train=False)
     tl, ta = tlosses.loss_and_acc(
         name, {"logits": torch.from_numpy(logits),
-               "dists": torch.tensor(dists)}, torch.from_numpy(labels), 16)
+               "dists": torch.tensor(dists)}, torch.from_numpy(labels),
+        torch.from_numpy(zeros), torch.from_numpy(zeros), 16, train=False)
     np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6, atol=1e-6)
     assert ta.item() == float(ja)
 

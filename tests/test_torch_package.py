@@ -13,6 +13,9 @@ import clipspm_tpu_torch
 from clipspm_tpu_torch import resolve_device
 from clipspm_tpu_torch.cli.run import main as port_cli
 from clipspm_tpu_torch.models.fsar import build_model
+from clipspm_tpu_torch.models.heads.clipfsar import CLIPFSARModel
+from clipspm_tpu_torch.models.heads.cpm2c import CPM2CModel
+from clipspm_tpu_torch.models.heads.sten import STENModel
 from clipspm_tpu_torch.models.heads.ta2n import TA2NModel
 from clipspm_tpu_torch.utils.config import load_config
 
@@ -21,6 +24,7 @@ PKG = os.path.join(REPO, "clipspm_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "clipspm_tpu")
 HMDB = os.path.join(REPO, "configs", "clipspm", "hmdb.yaml")
 UCF_TA2N = os.path.join(REPO, "configs", "ta2n", "ucf.yaml")
+CONFIGS = os.path.join(REPO, "configs")
 
 
 def _port_sources():
@@ -89,12 +93,13 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("opts,error", [
     (["MODEL.NAME=otam"], NotImplementedError),     # an unported head
-    (["TEST.ONLY_TEST=true", "TEST.CACHE_FEATURES=false"],
-     NotImplementedError),                                    # uncached
     (["TEST.ONLY_TEST=true", "TEST.TEST_MODEL_PATH=/nonexistent/ckpt"],
      FileNotFoundError),
     (["TEST.ONLY_TEST=true", "DEVICE.NUM_CHIPS=2"],
      NotImplementedError),                                    # DDP
+    (["DEVICE.TP=2"], NotImplementedError),          # tensor parallelism
+    (["DEVICE.NUM_CHIPS=0"], ValueError),
+    (["SOLVER.ACCUM_DTYPE=float16"], ValueError),
     (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=attn"],
      NotImplementedError),                          # remat policies not
     (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=mlp"],
@@ -128,8 +133,7 @@ def test_existing_test_model_path_is_refused(tmp_path):
     assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
 
 
-UNPORTED_HEADS = ["otam", "trx", "clipfsar", "molo", "strm", "soap", "sten",
-                  "cpm2c"]
+UNPORTED_HEADS = ["otam", "trx", "molo", "strm", "soap"]
 
 
 @pytest.mark.parametrize("name", UNPORTED_HEADS)
@@ -165,3 +169,67 @@ def test_build_model_builds_ta2n_at_full_width():
         "MODEL.BACKBONE=test-tiny-resnet", "USE_AMP=false"]))
     assert tiny.backbone.arch == "resnet18" and tiny.dim == 64
     assert tiny.metric == "cos" and tiny.compute_dtype is None
+
+
+def test_build_model_builds_clipfsar_at_full_width():
+    cfg = load_config(os.path.join(CONFIGS, "clipfsar", "hmdb.yaml"))
+    model = build_model(cfg)
+    assert isinstance(model, CLIPFSARModel)
+    assert (model.way, model.shot) == (5, 1)
+    assert model.arch.embed_dim == 1024 and not model.arch.is_vit
+    assert model.context2.depth == 1
+    attn = model.context2.attn_0
+    assert (attn.heads, attn.dim_head) == (8, 128)
+    assert model.context2.ff_0.fc1.out_features == 2048
+    assert model.use_classification and not model.merge_before
+    assert not (model.eval_text or model.combine or model.single_direct)
+    assert model.text_coff == 0.9                         # TEXT_COFF unset
+    assert model.compute_dtype == torch.bfloat16
+    assert (model.encode_chunk, model.train_encode_chunk) == (0, 0)
+    vit = build_model(load_config(
+        os.path.join(CONFIGS, "clipfsar", "hmdb.yaml"),
+        opts=["MODEL.BACKBONE=ViT-B/16", "MODEL.TRANSFORMER_DEPTH=2"]))
+    assert vit.arch.embed_dim == 512 and vit.context2.depth == 2
+    assert (vit.encode_chunk, vit.train_encode_chunk,
+            vit.train_remat_policy) == (30, 40, "attn_out")
+
+
+def test_build_model_builds_cpm2c_at_full_width():
+    cfg = load_config(os.path.join(CONFIGS, "cpm2c", "hmdb.yaml"))
+    model = build_model(cfg)
+    assert isinstance(model, CPM2CModel)
+    assert (model.motion_coeff, model.normal_coeff) == (0.0, 1.0)
+    assert list(cfg.MODEL.LMD) == [0.5, 1, 0]
+    d = 1024
+    assert model.arch.embed_dim == d
+    assert model.class_token.shape == model.class_token_motion.shape \
+        == (1, 1, d)
+    # hmdb's SPM widths over the cpm2c defaults: 1.5 d and 0.5 d
+    assert model.gate_text_fc1.out_features == 1536
+    assert model.gate_vision_fc1.out_features == 512
+    assert model.p["negative_slope"] == 0.0025
+    convs = [(c.kernel_size, c.padding, c.dilation, c.in_channels)
+             for c in (model.motion_conv1_1, model.motion_conv1_3,
+                       model.motion_conv1_5, model.scale_conv)]
+    assert convs == [((1,), (0,), (1,), d), ((3,), (1,), (1,), d),
+                     ((3,), (2,), (2,), d), ((1,), (0,), (1,), 3 * d)]
+    assert (model.context2.attn_0.heads,
+            model.context2.attn_0.dim_head) == (8, 128)
+    assert not (model.use_contrastive or model.merge_before)
+    # the JAX build passes cpm2c no remat policy: "full", whatever is set
+    vit = build_model(load_config(
+        os.path.join(CONFIGS, "cpm2c", "hmdb.yaml"),
+        opts=["MODEL.BACKBONE=ViT-B/16",
+              "MODEL.TRAIN_REMAT_POLICY=attn"]))
+    assert (vit.train_encode_chunk, vit.train_remat_policy) == (40, "full")
+
+
+def test_build_model_builds_sten_at_full_width():
+    model = build_model(load_config(os.path.join(CONFIGS, "sten",
+                                                 "ucf.yaml")))
+    assert isinstance(model, STENModel)
+    assert (model.way, model.shot) == (5, 1)
+    assert model.arch.embed_dim == 1024
+    # the tower's parameters and nothing else
+    assert {k.split(".")[0] for k, _ in model.named_parameters()} \
+        == {"backbone"}

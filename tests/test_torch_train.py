@@ -300,8 +300,8 @@ def test_loss_dispatch_train_flag_matches_jax(name):
         train=True)
     tl, ta = tlosses.loss_and_acc(
         name, {"logits": torch.from_numpy(logits),
-               "dists": torch.tensor(dists)}, torch.from_numpy(labels), 16,
-        train=True)
+               "dists": torch.tensor(dists)}, torch.from_numpy(labels),
+        torch.from_numpy(zeros), torch.from_numpy(zeros), 16, train=True)
     np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6)
     assert ta.item() == float(ja)
 
@@ -360,7 +360,8 @@ def _fp64_step_narrowing(cfg_path: str, name: str, opts, size: int,
         with Narrowing() as mode:
             out = model(*[torch.tensor(f, dtype=dtype) for f in frames],
                         torch.tensor([0, 1]), *labels[1:], tt, tt)
-            loss, _ = tlosses.loss_and_acc(name, out, labels[0], 1)
+            loss, _ = tlosses.loss_and_acc(name, out, labels[0], *labels[1:],
+                                           1)
             loss.backward()
         if dtype == torch.float64:
             assert loss.dtype == torch.float64
