@@ -16,7 +16,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    and CUDA-graph timings from CUDA events: K1 (OTAM DP) and K2 (soft-DTW
    DP), each in table mode and in fused mode (cosine table and both DP
    directions in one launch), the fused modes also against the op chain
-   each launch replaces; K1 also at cpm2c's motion stream (L=7);
+   each launch replaces; K1 also at cpm2c's motion stream (L=7) and at the
+   otam head's D=2048, lambda 0.1;
 4. the main paths at full width, each through the port's CLI on random
    weights over a synthetic split, with every kernel launch counter set to
    0 just before the path and read just after:
@@ -32,12 +33,18 @@ Phases, in order; any failure ends the run with a nonzero exit:
      launches per episode, cpm2c's second at L=7) and sten (UCF layout; no
      kernel): feature-cached evaluation, each head's fp32 logits on the
      card held against the CPU's;
+   - otam, trx, strm: the torchvision ResNet-50 heads (UCF layout, 5-way
+     1-shot, bf16), feature-cached evaluation (otam: 1 K1 launch per
+     episode at D=2048, lambda 0.1; trx, strm: none), each head's fp32
+     logits on the card held against the CPU's;
    - clipspm-uncached and clipspm-vit-uncached: the clipspm and clipspm-vit
      paths with ``TEST.CACHE_FEATURES=false``, the uncached evaluator at
      ``TEST.EVAL_BATCH`` 32 episodes a step over the test EpisodeLoader (3
-     K1 launches per episode); then the same 8 episodes through the uncached
-     and the cached evaluator at fp32, whose losses and accuracies must
-     agree;
+     K1 launches per episode); soap-uncached and molo-uncached, the two
+     heads that only the uncached evaluator serves (no kernel), each
+     model's fp32 logits over one episode on the card held against the
+     CPU's; then the same 8 episodes of clipspm through the uncached and
+     the cached evaluator at fp32, whose losses and accuracies must agree;
    - clipspm-train and clipspm-vit-train: CLIP-SPM training on the RN50 and
      the ViT-B/16 towers (5-way 5-shot 4-query, 16 episodes an Adam step,
      bf16; the ViT in rematerialised chunks of 40 frames keeping the
@@ -53,10 +60,14 @@ Phases, in order; any failure ends the run with a nonzero exit:
      cpm2c-train (uncached validation and test, 2 K1 launches per episode):
      clipfsar/hmdb.yaml and cpm2c/hmdb.yaml training (5-way 1-shot 4-query,
      Adam, bf16), the same stages;
+   - otam-train (otam/ucf.yaml, SGD, cached validation, 1 K1 launch per
+     episode, Q=20 in training) and molo-train (molo/ucf.yaml, Adam, steps
+     of 4, the decoder's BatchNorm in training mode, uncached validation
+     and test; no kernel), the same stages;
    each train path also profiles one optimizer step; the clipspm and ta2n
    ones hold one fp32 train step on the card and on the CPU against an fp64
-   step on the CPU, clipfsar's and cpm2c's hold the head's fp32 gradients
-   on the card against the CPU's.
+   step on the CPU, the other heads' hold the head's fp32 gradients (and
+   its inputs') on the card against the CPU's.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -99,13 +110,15 @@ OTAM_TABLES = ((25, 8, 8), (5, 8, 8), (1600, 8, 8), (25, 8, 32))
 # 4 (4-byte copies), the otam head's lambda, and the class and task
 # distances in training (4 queries a class: Q=20); then the same three
 # shapes at the ViT-B/16 tower's width 512; then cpm2c's motion distance
-# (one frame fewer: L=7) in evaluation and in training
+# (one frame fewer: L=7) in evaluation and in training; last the otam head's
+# distance (ResNet-50 width 2048, lambda 0.1) in evaluation and in training
 OTAM_FUSED = ((5, 5, 8, 1024, True, 0.5), (5, 5, 8, 1024, False, 0.5),
               (1, 5, 8, 1024, True, 0.5), (1, 5, 8, 1024, False, 0.5),
               (5, 5, 8, 1021, True, 0.5), (5, 5, 8, 1024, True, 0.1),
               (20, 5, 8, 1024, True, 0.5), (5, 5, 8, 512, True, 0.5),
               (1, 5, 8, 512, True, 0.5), (20, 5, 8, 512, True, 0.5),
-              (5, 5, 7, 1024, True, 0.5), (20, 5, 7, 1024, True, 0.5))
+              (5, 5, 7, 1024, True, 0.5), (20, 5, 7, 1024, True, 0.5),
+              (5, 5, 8, 2048, True, 0.1), (20, 5, 8, 2048, True, 0.1))
 OTAM_T = 8
 TOL = 2e-5   # fp32 table mode: the same soft-min, rounded in another order
 # fp32 fused modes: 1024- and 2048-long dot products summed in another order
@@ -322,9 +335,9 @@ def phase_k1() -> dict:
         "soft-min DP")
     main = fused[(5, 5, 8, 1024, True, 0.5)]
 
-    def shapes(qs, L, D):
-        return {f"Q={q} S=5 L={L} D={D} bidirectional lambda=0.5": {
-            "library_ms": None, **fused[(q, 5, L, D, True, 0.5)]}
+    def shapes(qs, L, D, lbda=0.5):
+        return {f"Q={q} S=5 L={L} D={D} bidirectional lambda={lbda}": {
+            "library_ms": None, **fused[(q, 5, L, D, True, lbda)]}
             for q in qs}
     return {"name": "otam_dp (K1)", "status": "ported", "route": "cuda",
             "source": "clipspm_tpu_torch/csrc/otam_dp.cu",
@@ -338,6 +351,7 @@ def phase_k1() -> dict:
             "train_shapes": shapes((20, 1), 8, 1024),
             "vit_shapes": shapes((5, 1, 20), 8, 512),
             "motion_shapes": shapes((5, 20), 7, 1024),
+            "otam_head_shapes": shapes((5, 20), 8, 2048, 0.1),
             "table": {"shape": [25, OTAM_T, OTAM_T], "lambda": 0.5,
                       **table[(25, OTAM_T, OTAM_T, 0.5)]}}
 
@@ -476,7 +490,16 @@ def phase_k2() -> dict:
 #   the appearance stream at L=8 and the motion stream at L=7 (2 fused K1
 #   launches; the motion one is computed at weight 0, as in the JAX head);
 # - sten: configs/sten/ucf.yaml (RN50, 5-way 1-shot) over the UCF-layout
-#   split; no DP, so no kernel.
+#   split; no DP, so no kernel;
+# - otam, trx, strm: configs/{otam,trx,strm}/ucf.yaml (the torchvision
+#   ResNet-50 trunk, 224 crop, T=8, 5-way 1-shot, bf16) over the UCF-layout
+#   split: otam's table holds each frame's 7x7 = 49 spatial tokens and its
+#   head one bidirectional OTAM at lambda 0.1 and D=2048 per episode (1
+#   fused K1 launch); trx (tuples of 2 and 3 frames) and strm (patch-attended
+#   frames in the table) no kernel;
+# - soap, molo: configs/{soap,molo}/ucf.yaml, the same layout; no cached
+#   route (soap's priors run on pixels, molo's reconstruction needs them),
+#   so they run only as uncached paths (below); no kernel.
 PATHS = {
     "clipspm": dict(cfg="configs/clipspm/hmdb.yaml", opts=(),
                     frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
@@ -503,10 +526,34 @@ PATHS = {
                  frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
                  classes=21, videos=6, launches={"K1": 0, "K2": 0},
                  metrics=(None,)),
+    "otam": dict(cfg="configs/otam/ucf.yaml", opts=(),
+                 frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
+                 classes=21, videos=6, launches={"K1": 1, "K2": 0},
+                 metrics=(None,), table_tail=(49, 2048)),
+    "trx": dict(cfg="configs/trx/ucf.yaml", opts=(),
+                frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
+                classes=21, videos=6, launches={"K1": 0, "K2": 0},
+                metrics=(None,), table_tail=(2048,)),
+    "strm": dict(cfg="configs/strm/ucf.yaml", opts=(),
+                 frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
+                 classes=21, videos=6, launches={"K1": 0, "K2": 0},
+                 metrics=(None,), table_tail=(2048,)),
+    "soap": dict(cfg="configs/soap/ucf.yaml", opts=(),
+                 frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
+                 classes=21, videos=6, launches={"K1": 0, "K2": 0},
+                 cached=False, model_check=True),
+    "molo": dict(cfg="configs/molo/ucf.yaml", opts=(),
+                 frame_dir="ucf_256x256q5_l8", split_dir="ucf_ARN",
+                 classes=21, videos=6, launches={"K1": 0, "K2": 0},
+                 cached=False, model_check=True),
 }
-# episodes of each cached eval path (cut from 300 to make room for the
-# uncached and head paths within the script's time)
-MAIN_EPISODES = 200
+CACHED_PATHS = tuple(n for n, spec in PATHS.items()
+                     if spec.get("cached", True))
+# episodes of each cached eval path (cut from 300, then from 200, to make
+# room for the uncached paths and the other heads' paths within the
+# script's time; the head rate is read over them, the rest of a path's
+# time does not depend on them)
+MAIN_EPISODES = 100
 SPLIT_FRAMES, SPLIT_PX = 10, 256
 SEQ_LEN = 8
 # the head on the card (fp32, no TF32) against the head on the CPU (fp32):
@@ -516,6 +563,13 @@ HEAD_TOL = 1e-4
 # kernel) against the CPU's over 4 frames: max abs diff <= this times the
 # largest feature magnitude
 TOWER_TOL, TOWER_FRAMES = 1e-4, 4
+# a whole model (soap, molo) on the card against the CPU over one episode,
+# fp32: max abs logit diff <= this times the largest logit, or than 1.
+# molo's logits are sums of 1 - cos over frame pairs, whose unit is 1: on
+# random weights the frames are nearly collinear and the logits about
+# 4e-3, and the two sides' 2.5e-6 apart (measured on an H100 80GB HBM3 at
+# 700 W) is the cosines' fp32 rounding, not a share of the logits
+MODEL_TOL = 1e-4
 # the device kernels of each, as the profiler names them (both modes)
 KERNEL_NAMES = {"K1": ("otam_dp_kernel", "otam_fused_kernel"),
                 "K2": ("softdtw_dp_kernel", "softdtw_fused_kernel")}
@@ -620,6 +674,25 @@ def seeded_frames(path_lists, *args, **kwargs):
             rng = np.random.default_rng(zlib.crc32(path.encode()))
             out[i, t] = rng.integers(0, 256, out.shape[2:], dtype=np.uint8)
     return out
+
+
+def _seeded_episodes(cfg, train: bool, n: int) -> list:
+    """The first ``n`` episodes of the train or the test stream, seeded
+    frames after the decode stage, as host ``Episode``s."""
+    from clipspm_tpu_torch.data import pipeline
+    from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
+
+    queries = cfg.TRAIN.QUERY_PER_CLASS if train else \
+        cfg.TEST.QUERY_PER_CLASS
+    catalog, sampler = build_catalog_and_sampler(
+        cfg, "train" if train else "test", train, int(queries))
+    decode = pipeline.decode_path_lists
+    pipeline.decode_path_lists = seeded_frames
+    try:
+        return [pipeline.decode_plan(sampler.sample(), catalog)
+                for _ in range(n)]
+    finally:
+        pipeline.decode_path_lists = decode
 
 
 class _Recorder:
@@ -906,8 +979,8 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
         if not math.isfinite(res[key]):
             raise AssertionError(f"{name} path {key} is not finite: {res}")
     model = rec.learner.model
-    tail = ((model.arch.embed_dim,) if hasattr(model, "arch")
-            else (7, 7, model.dim))
+    tail = spec.get("table_tail") or (
+        (model.arch.embed_dim,) if hasattr(model, "arch") else (7, 7, model.dim))
     want_shape = (V, SEQ_LEN) + tail
     if tuple(rec.table.shape) != want_shape or not bool(
             torch.isfinite(rec.table).all()):
@@ -939,9 +1012,13 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
 # decode stage, as above), TEST.EVAL_BATCH (32, as shipped) a step, each
 # episode's 240 frames transformed and encoded afresh, the episodes of a step
 # run one after another. UNCACHED_EPISODES is two full steps. Each path runs
-# its eval path's config and split with TEST.CACHE_FEATURES=false.
+# its eval path's config and split with TEST.CACHE_FEATURES=false. soap and
+# molo (UCF layout, ResNet-50, 5-way 1-shot, E=32 as shipped) have no other
+# evaluator; their whole model's fp32 logits over one episode on the card
+# are also held against the CPU's (MODEL_TOL).
 UNCACHED_PATHS = {"clipspm-uncached": "clipspm",
-                  "clipspm-vit-uncached": "clipspm-vit"}
+                  "clipspm-vit-uncached": "clipspm-vit",
+                  "soap-uncached": "soap", "molo-uncached": "molo"}
 UNCACHED_EPISODES = 64
 # uncached = cached on the card: the first EQUAL_EPISODES episodes of the
 # clipspm path's stream through both evaluators, fp32 (USE_AMP false, TF32
@@ -992,18 +1069,7 @@ def profile_uncached(learner, cfg, episodes: int = 4) -> dict:
     evaluated) under ``torch.profiler``, after one unprofiled pass."""
     from torch.profiler import ProfilerActivity, profile
 
-    from clipspm_tpu_torch.data import pipeline
-    from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
-
-    catalog, sampler = build_catalog_and_sampler(
-        cfg, "test", False, int(cfg.TEST.QUERY_PER_CLASS))
-    decode = pipeline.decode_path_lists
-    pipeline.decode_path_lists = seeded_frames
-    try:
-        eps = [pipeline.decode_plan(sampler.sample(), catalog)
-               for _ in range(episodes)]
-    finally:
-        pipeline.decode_path_lists = decode
+    eps = _seeded_episodes(cfg, False, episodes)
     batch = learner._ready(*learner._to_device(eps))
     learner.model.eval()
     learner._eval_batch(batch, episodes)
@@ -1043,6 +1109,8 @@ def phase_uncached_path(name: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         cfg = rec.learner.cfg
         step_profile = profile_uncached(rec.learner, cfg)
+        model_err = (check_model_against_cpu(rec.learner, cfg)
+                     if spec.get("model_check") else None)
     E = int(cfg.TEST.EVAL_BATCH)
     batches = [(n, a.elapsed_time(b) / 1e3) for n, a, b in rec.batches]
     want_batches = [E] * (UNCACHED_EPISODES // E) + (
@@ -1072,8 +1140,61 @@ def phase_uncached_path(name: str) -> dict:
            "evaluate_seconds": res["seconds"], "cli_seconds": wall,
            "build_seconds": rec.learner.build_seconds,
            "peak_memory_bytes": peak}
+    if model_err is not None:
+        out["model_vs_cpu"] = model_err
     log(json.dumps({"main_path": out}))
     log(json.dumps({"uncached_profile": {"path": name, **step_profile}}))
+    return out
+
+
+def check_model_against_cpu(learner, cfg) -> dict:
+    """The whole model in evaluation mode on the card (fp32 weights, no
+    autocast, no TF32 in cuBLAS or cuDNN) against a CPU copy over one test
+    episode (the eval transform on each side): max abs logit difference
+    <= MODEL_TOL times the largest logit, or than 1."""
+    import copy
+
+    import numpy as np
+
+    from clipspm_tpu_torch.data.transforms import episode_device_transform
+
+    ep = _seeded_episodes(cfg, False, 1)[0]
+    gpu = learner.model.eval()
+    cpu_model = copy.deepcopy(gpu).cpu().float()
+    dtype, gpu.compute_dtype = gpu.compute_dtype, None
+    cpu_model.compute_dtype = None
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = learner.transform
+    outs = []
+    try:
+        with torch.no_grad():
+            for model, dev in ((gpu, learner.device),
+                               (cpu_model, torch.device("cpu"))):
+                frames = [episode_device_transform(
+                    torch.from_numpy(x).to(dev), train=False,
+                    img_size=t.img_size, resize_to=t.resize_to,
+                    normalize=t.normalize)
+                    for x in (ep.support_images, ep.target_images)]
+                labels = [torch.from_numpy(np.asarray(x)).to(dev) for x in (
+                    ep.support_labels, ep.real_support_labels,
+                    ep.real_target_labels)]
+                outs.append(model(*frames, *labels,
+                                  learner.text_train.to(dev),
+                                  learner.text_test.to(dev))["logits"].cpu())
+    finally:
+        gpu.compute_dtype = dtype
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    err, scale = (outs[0] - outs[1]).abs().max().item(), \
+        outs[1].abs().max().item()
+    out = {"episodes": 1, "logits_shape": list(outs[1].shape),
+           "max_abs_diff": err, "max_abs_logit": scale,
+           "tol_of_max_or_1": MODEL_TOL}
+    if not err <= MODEL_TOL * max(scale, 1.0):
+        raise AssertionError(f"the model on the card vs the CPU: {out}")
     return out
 
 
@@ -1155,7 +1276,15 @@ def phase_uncached_equals_cached() -> dict:
 # - cpm2c-train: cpm2c/hmdb.yaml as shipped (the same episode layout,
 #   TASKS_PER_BATCH 16, Adam at LR 1e-5, the consistency term on), the same
 #   split, validating and testing uncached (TEST.CACHE_FEATURES=false). 2
-#   K1 launches an episode (L=8 and L=7).
+#   K1 launches an episode (L=8 and L=7);
+# - otam-train: otam/ucf.yaml as shipped (ResNet-50, 5-way 1-shot 4-query,
+#   SGD at LR 1e-4, TASKS_PER_BATCH 16, bf16), 70 train classes x 5 videos;
+#   cached validation. 1 K1 launch an episode (Q=20 in training, 5 after),
+#   its backward the plain replay;
+# - molo-train: molo/ucf.yaml as shipped (Adam at LR 5e-5, weight decay
+#   5e-4, TASKS_PER_BATCH 4: ten steps; the decoder and its BatchNorms in
+#   training mode), the same split; validation and test uncached (the
+#   config sets no cache). No kernel.
 # Each runs 40 episodes (steps of TASKS_PER_BATCH and the rest), validation
 # and a periodic checkpoint at episode 32.
 # ``check``: the one fp32 train step held against fp64 (below): its episodes
@@ -1163,7 +1292,8 @@ def phase_uncached_equals_cached() -> dict:
 # step sets the script's length), the per-tensor factor, and the tensors
 # whose gradient is zero in exact arithmetic. None: the head's gradients on
 # the card against the CPU's instead (``check_head_grads_against_cpu``; the
-# clipfsar and cpm2c heads hold no BatchNorm).
+# clipfsar, cpm2c and otam heads hold no BatchNorm; molo's decoder does,
+# held like every other tensor against the fp64 witness).
 TRAIN_PATHS = {
     "clipspm-train": dict(
         eval_path="clipspm", train_classes=31, train_videos=9,
@@ -1185,6 +1315,12 @@ TRAIN_PATHS = {
         eval_path="cpm2c", train_classes=31, train_videos=5,
         opts=("TEST.CACHE_FEATURES=false",), launches={"K1": 2, "K2": 0},
         check=None),
+    "otam-train": dict(
+        eval_path="otam", train_classes=70, train_videos=5,
+        launches={"K1": 1, "K2": 0}, check=None),
+    "molo-train": dict(
+        eval_path="molo", train_classes=70, train_videos=5,
+        launches={"K1": 0, "K2": 0}, check=None, grad_factor=10.0),
 }
 TRAIN_EPISODES, VAL_FREQ, SAVE_FREQ, VAL_EPISODES, PRINT_FREQ = \
     40, 32, 32, 100, 16
@@ -1215,15 +1351,25 @@ PROFILE_EPISODES = 2
 # relative to the witness.
 TRAIN_CHECK_FLOOR = 1e-4
 TRAIN_CHECK_TOL = 1e-4
-# The head's parameter gradients (clipfsar, cpm2c) over the same features:
-# fp32 on the card (TF32 off, K1's replay), fp32 on the CPU (the plain
-# versions) and the fp64 witness on the CPU. Each tensor's card error
+# The head's parameter and input gradients (clipfsar, cpm2c, otam, molo)
+# over the same features: fp32 on the card (TF32 off, PyTorch's own CUDA
+# convolutions in place of cuDNN's, K1's replay), fp32 on the CPU (the
+# plain versions) and the fp64 witness on the CPU. Each tensor's card error
 # against the witness may be twice the CPU's own, or HEAD_GRAD_TOL where
 # that is smaller: most tensors agree to 1e-6, but context2's last bias
 # sums its upstream gradient over every token, and cancels (the card and
 # the CPU fp32 1.55e-4 apart on cpm2c's, measured on an H100 80GB HBM3 at
-# 700 W). A wrong gradient path is off by O(1).
-HEAD_GRAD_TOL = 1e-4
+# 700 W). A wrong gradient path is off by O(1). molo's factor is 10
+# (``grad_factor``): its learned scales multiply sums of 1 - cos over
+# nearly collinear frames (random weights) against softmax residuals that
+# sum to 0 over the classes, so their gradients are residues of the
+# classes' distance differences, whose fp32 rounding depends on the
+# summation order. In two runs (the trained weights differ from run to
+# run) the card's error on scale_motion measured 2.7 and 3.8 times the
+# CPU's (1.9e-2 and 4.8e-2 against 7.0e-3 and 1.2e-2) with cuDNN's
+# convolutions, whose own fp32 error (above) the factor now need not
+# carry.
+HEAD_GRAD_TOL, HEAD_GRAD_FACTOR = 1e-4, 2.0
 
 
 class _TrainRecorder(_Recorder):
@@ -1316,20 +1462,10 @@ def profile_train_step(learner, cfg) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from clipspm_tpu_torch.data import pipeline
     from clipspm_tpu_torch.ops import otam_cuda, softdtw_cuda
-    from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
 
     tpb = PROFILE_EPISODES
-    catalog, sampler = build_catalog_and_sampler(
-        cfg, "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
-    decode = pipeline.decode_path_lists
-    pipeline.decode_path_lists = seeded_frames
-    try:
-        eps = [pipeline.decode_plan(sampler.sample(), catalog)
-               for _ in range(tpb)]
-    finally:
-        pipeline.decode_path_lists = decode
+    eps = _seeded_episodes(cfg, True, tpb)
     batch = learner._ready(*learner._to_device(eps))
     functions = {"K1": otam_cuda._OtamDistance,
                  "K2": softdtw_cuda._SoftDTWCosPadded}
@@ -1533,30 +1669,25 @@ def check_train_step_against_cpu(cfg_path: str, opts, check: dict) -> dict:
     return out
 
 
-def check_head_grads_against_cpu(learner, cfg) -> dict:
-    """The trained head's parameter gradients on the card (fp32, TF32 off)
-    and on a CPU copy (fp32) against the CPU copy's in fp64, over one train
-    episode's features (the tower in eval mode on the card), train mode
+def check_head_grads_against_cpu(learner, cfg,
+                                 factor: float = HEAD_GRAD_FACTOR) -> dict:
+    """The trained head's parameter and input gradients on the card (fp32,
+    TF32 off) and on a CPU copy (fp32) against the CPU copy's in fp64, over
+    one train
+    episode's features (the tower in eval mode on the card; for molo, which
+    has no cacheable features, the trunk's maps and the clips), train mode
     with dropout's modules in eval mode, the dispatch's train loss; a tensor
-    whose gradient is 0 in fp64 (a stream weighted 0) must be 0 on the card
-    too."""
+    whose gradient is 0 in fp64 (a stream weighted 0, a branch no loss
+    reads) must be 0 on the card too."""
     import copy
 
     import numpy as np
 
-    from clipspm_tpu_torch.data import pipeline
     from clipspm_tpu_torch.data.transforms import episode_device_transform
+    from clipspm_tpu_torch.models.visual import encode_frames
     from clipspm_tpu_torch.train.losses import loss_and_acc
-    from clipspm_tpu_torch.train.setup import build_catalog_and_sampler
 
-    catalog, sampler = build_catalog_and_sampler(
-        cfg, "train", True, int(cfg.TRAIN.QUERY_PER_CLASS))
-    decode = pipeline.decode_path_lists
-    pipeline.decode_path_lists = seeded_frames
-    try:
-        ep = pipeline.decode_plan(sampler.sample(), catalog)
-    finally:
-        pipeline.decode_path_lists = decode
+    ep = _seeded_episodes(cfg, True, 1)[0]
     gpu = learner.model
     dtype, gpu.compute_dtype = gpu.compute_dtype, None
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -1567,13 +1698,20 @@ def check_head_grads_against_cpu(learner, cfg) -> dict:
     try:
         cpu_model = copy.deepcopy(gpu).cpu().float()
         t = learner.transform
+        cached = hasattr(gpu, "match_features")
         with torch.no_grad():
             gpu.eval()
-            feats = [gpu.encode(episode_device_transform(
+            frames = [episode_device_transform(
                 torch.from_numpy(x).to(learner.device), train=False,
                 img_size=t.img_size, resize_to=t.resize_to,
-                normalize=t.normalize)).float()
+                normalize=t.normalize)
                 for x in (ep.support_images, ep.target_images)]
+            if cached:
+                feats = [gpu.encode(f).float() for f in frames]
+            else:
+                both = torch.cat(frames)
+                feats = [encode_frames(gpu.backbone, both, 0, None).float(),
+                         both.float()]
         labels = [torch.from_numpy(np.asarray(x)) for x in (
             ep.support_labels, ep.real_support_labels,
             ep.real_target_labels, ep.target_labels)]
@@ -1588,20 +1726,34 @@ def check_head_grads_against_cpu(learner, cfg) -> dict:
                 if isinstance(m, torch.nn.Dropout):
                     m.eval()
             model.zero_grad(set_to_none=True)
-            su, qu = [f.to(dev, dt) for f in feats]
+            a, b = [f.detach().to(dev, dt).clone().requires_grad_(True)
+                    for f in feats]
             sl, rs, rt, tl = [x.to(dev) for x in labels]
-            out = model.match_features(su, qu, sl, rs, rt,
-                                       learner.text_train.to(dev, dt),
-                                       learner.text_test.to(dev, dt))
-            loss, _ = loss_and_acc(learner.model_name, out, tl, rs, rt,
-                                   learner.tasks_per_batch, cfg=cfg,
-                                   train=True)
-            loss.backward()
+            # PyTorch's own CUDA convolutions (im2col and a cuBLAS GEMM),
+            # not cuDNN's: the fp32 algorithms cuDNN picks for molo's
+            # convolutions put the trunk maps' gradient 7.6e-4 from fp64
+            # where the CPU's was 1.4e-6 (the path itself runs cuDNN)
+            with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+                out = (model.match_features(a, b, sl, rs, rt,
+                                            learner.text_train.to(dev, dt),
+                                            learner.text_test.to(dev, dt))
+                       if cached else model.head(a, b, sl))
+                loss, _ = loss_and_acc(learner.model_name, out, tl, rs, rt,
+                                       learner.tasks_per_batch, cfg=cfg,
+                                       train=True)
+                loss.backward()
             losses[side] = loss.item()
             grads[side] = {k: p.grad.detach().cpu().double()
                            for k, p in model.named_parameters()
                            if p.grad is not None
                            and not k.startswith("backbone.")}
+            # and the head's inputs' (the only gradient of otam's head,
+            # whose loss reads no head parameter: K1's replay)
+            inputs = (("support features", "query features") if cached
+                      else ("trunk maps", "clips"))
+            grads[side].update({f"input: {n}": x.grad.detach().cpu().double()
+                                for n, x in zip(inputs, (a, b))
+                                if x.grad is not None})
     finally:
         gpu.compute_dtype = dtype
         (torch.backends.cuda.matmul.allow_tf32,
@@ -1622,7 +1774,7 @@ def check_head_grads_against_cpu(learner, cfg) -> dict:
             continue
         err, cpu_err = rel(card[k], ref[k]), rel(cpu[k], ref[k])
         rows.append((err, cpu_err, rel(card[k], cpu[k]), k))
-        if not err <= max(2.0 * cpu_err, HEAD_GRAD_TOL):
+        if not err <= max(factor * cpu_err, HEAD_GRAD_TOL):
             bad.append(f"{k} {err:.3e} (CPU fp32 {cpu_err:.3e})")
     rows.sort(reverse=True)
     out = {"frames": int(cfg.TRAIN.WAY) * int(cfg.DATA.SEQ_LEN) * (
@@ -1632,7 +1784,7 @@ def check_head_grads_against_cpu(learner, cfg) -> dict:
                                          for e, ce, cc, k in rows[:6]],
            "grad_rel_l2_card_vs_cpu_max": max(
                (cc for _, _, cc, _ in rows), default=0.0),
-           "loss": losses, "factor": 2.0, "floor": HEAD_GRAD_TOL}
+           "loss": losses, "factor": factor, "floor": HEAD_GRAD_TOL}
     log(json.dumps({"head_grads_vs_cpu": out}))
     if bad:
         raise AssertionError("head gradients on the card vs the CPU: "
@@ -1723,7 +1875,8 @@ def phase_train_path(name: str) -> dict:
         log(json.dumps({"train_profile": {"path": name, **profile}}))
         if run["check"] is None:
             t0 = time.perf_counter()
-            check = check_head_grads_against_cpu(learner, cfg)
+            check = check_head_grads_against_cpu(
+                learner, cfg, run.get("grad_factor", HEAD_GRAD_FACTOR))
             stage_seconds["check"] = time.perf_counter() - t0
         del learner, rec
 
@@ -1795,7 +1948,8 @@ def main() -> int:
     timed("build", phase_build)
     k1 = timed("K1", phase_k1)
     k2 = timed("K2", phase_k2)
-    evals = {name: timed(name, phase_main_path, name) for name in PATHS}
+    evals = {name: timed(name, phase_main_path, name)
+             for name in CACHED_PATHS}
     evals.update({name: timed(name, phase_uncached_path, name)
                   for name in UNCACHED_PATHS})
     timed("uncached=cached", phase_uncached_equals_cached)

@@ -6,21 +6,23 @@ Usage:
 
 Same flags, overrides, log lines and checkpoint directory as
 ``clipspm_tpu/cli/run.py``, plus ``--device`` (default ``cuda``; with no GPU
-visible the run raises rather than carrying on on the CPU). With
-``TEST.ONLY_TEST=false`` it trains (``Conduct Training:``), validating
-through the feature cache every ``TRAIN.VAL_FREQ`` episodes and saving
-``checkpoint_best`` and ``checkpoint_iter_N``; with ``TEST.ONLY_TEST=true``
-validating every ``TRAIN.VAL_FREQ`` episodes (through the feature cache
-with ``TEST.CACHE_FEATURES``, else uncached at ``TEST.EVAL_BATCH`` episodes
-a step) and saving ``checkpoint_best`` and ``checkpoint_iter_N``; with
-``TEST.ONLY_TEST=true`` it restores ``TEST.TEST_MODEL_PATH`` or
-``checkpoint_best`` (when present) and runs the test protocol, through the
-feature cache with ``TEST.CACHE_FEATURES``, else uncached. A model the cache
-cannot serve falls back to the uncached evaluator with a warning line. It
-trains and tests the ported heads: clipspm, clipfsar, sten and cpm2c (RN50
-and ViT towers) and ta2n. What the port does not carry yet (the other heads,
-several GPUs, the remat policies ``attn`` and ``mlp``) raises
-``NotImplementedError`` naming its ROADMAP item before anything is built.
+visible the run raises rather than carrying on on the CPU).
+
+- ``TEST.ONLY_TEST=false`` trains (``Conduct Training:``), validating every
+  ``TRAIN.VAL_FREQ`` episodes and saving ``checkpoint_best`` and
+  ``checkpoint_iter_N``.
+- ``TEST.ONLY_TEST=true`` restores ``TEST.TEST_MODEL_PATH``, or
+  ``checkpoint_best`` when present, and runs the test protocol.
+
+Both evaluate through the feature cache with ``TEST.CACHE_FEATURES``, else
+uncached at ``TEST.EVAL_BATCH`` episodes a step; a model the cache cannot
+serve (soap and molo, which need each episode's pixels) falls back to the
+uncached evaluator with a warning line. It builds all ten heads of
+``configs/``: clipspm, clipfsar, sten and cpm2c (RN50 and ViT towers), and
+ta2n, otam, trx, strm, soap and molo (torchvision ResNet trunk). What the
+port does not carry yet (several GPUs, the remat policies ``attn`` and
+``mlp``, the opt-in extras) raises ``NotImplementedError`` naming its
+ROADMAP item before anything is built.
 """
 
 from __future__ import annotations

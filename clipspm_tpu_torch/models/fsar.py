@@ -4,9 +4,11 @@ Port of ``clipspm_tpu/models/fsar.py``. The backbone encodes the support and
 query frames; the head consumes per-frame features; text tables are inputs
 gathered per episode. Under ``USE_AMP`` the forward runs under bf16 autocast
 (convolutions and matmuls in bf16; norms in fp32; the OTAM and soft-DTW DPs
-in fp32). ``build_model`` builds ``clipspm`` (``CLIPSPMModel`` below),
-``clipfsar``, ``sten`` and ``cpm2c`` (``heads/{clipfsar,sten,cpm2c}.py``, on
-``visual.py:CLIPVideoModel``) and ``ta2n`` (``heads/ta2n.py:TA2NModel``).
+in fp32). ``build_model`` builds all ten heads of ``configs/``: ``clipspm``
+(``CLIPSPMModel`` below), ``clipfsar``, ``sten`` and ``cpm2c``
+(``heads/{clipfsar,sten,cpm2c}.py``, on ``visual.py:CLIPVideoModel``), and
+on the torchvision ResNet trunk ``ta2n``, ``otam``, ``trx``, ``strm``,
+``soap`` and ``molo`` (``heads/<name>.py``).
 """
 
 from __future__ import annotations
@@ -18,11 +20,16 @@ from torch import nn
 
 from .backbones.clip import CLIP_ARCHS, CLIPArch
 from .backbones.resnet import RESNET_LAYERS
-from .heads.clipspm import CLIPSPM
-from .heads.ta2n import TA2NModel
 from .heads.clipfsar import CLIPFSARModel
+from .heads.clipspm import CLIPSPM
 from .heads.cpm2c import CPM2CModel
+from .heads.molo import MoLoModel
+from .heads.otam import OTAMModel
+from .heads.soap import SOAPModel
 from .heads.sten import STENModel
+from .heads.strm import STRMModel
+from .heads.ta2n import TA2NModel
+from .heads.trx import TRXModel
 from .visual import CLIPVideoModel, check_remat_policy, compute_autocast
 
 
@@ -51,25 +58,28 @@ class CLIPSPMModel(CLIPVideoModel):
                              target_context)
 
 
-PORTED_MODELS = ("clipspm", "clipfsar", "sten", "cpm2c", "ta2n")
+# the heads on the torchvision ResNet trunk (the rest are CLIP heads)
+RESNET_HEADS = ("ta2n", "otam", "trx", "strm", "soap", "molo")
+PORTED_MODELS = ("clipspm", "clipfsar", "sten", "cpm2c") + RESNET_HEADS
 
 
 def check_model_config(cfg) -> None:
     """Raise for a model config the port does not build, before anything
-    is built: a head other than ``PORTED_MODELS`` or a JAX-package
-    numerics knob (``NotImplementedError``, naming the ROADMAP item), a
-    remat policy the port does not honour, a train chunk on a BatchNorm
-    backbone (``ValueError``, as the JAX package raises it)."""
+    is built: a name outside ``PORTED_MODELS`` (``NotImplementedError``, as
+    the JAX ``build_model`` raises it) or a JAX-package numerics knob
+    (``NotImplementedError``, naming the ROADMAP item), a remat policy the
+    port does not honour, a train chunk on a BatchNorm backbone
+    (``ValueError``, as the JAX package raises it)."""
     name = cfg.MODEL.NAME
     if name not in PORTED_MODELS:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, open item 'the "
-            f"remaining ResNet heads'); the port builds {PORTED_MODELS}")
+            f"model {name!r} is not one of the system's heads "
+            f"{PORTED_MODELS}")
     for knob in ("FAST_SOFTMAX", "BF16_NORMS", "INT8_EVAL"):
         if cfg.MODEL.get(knob, False):
             raise NotImplementedError(
                 f"MODEL.{knob} is a JAX-package numerics option the port "
-                "does not carry")
+                "does not carry (ROADMAP.md, open item 'opt-in extras')")
     _chunking(cfg.MODEL, cfg.MODEL.BACKBONE, name)
 
 
@@ -84,19 +94,8 @@ def build_model(cfg) -> nn.Module:
     chunk, train_chunk, remat_policy = _chunking(cfg.MODEL, backbone, name)
     compute_dtype = (torch.bfloat16 if cfg.get("USE_AMP", False) else None)
     way, shot = int(cfg.TRAIN.WAY), int(cfg.TRAIN.SHOT)
-    if name == "ta2n":
-        # test-size resnet trunks use a narrow width
-        rn_width = 8 if backbone == "test-tiny-resnet" else 64
-        rn_arch = "resnet18" if backbone == "test-tiny-resnet" else backbone
-        if rn_arch not in RESNET_LAYERS:
-            raise ValueError(f"unknown ResNet backbone {backbone!r}")
-        m = cfg.MODEL
-        return TA2NModel(
-            way=way, shot=shot, seq_len=int(cfg.DATA.SEQ_LEN), arch=rn_arch,
-            backbone_width=rn_width, encode_chunk=chunk,
-            dropout=float(m.get("DROPOUT", 0.5)),
-            dist_norm=bool(m.get("DIST_NORM", False)),
-            metric=str(m.get("METRIC", "cos")), compute_dtype=compute_dtype)
+    if name in RESNET_HEADS:
+        return _resnet_head(cfg, name, way, shot, chunk, compute_dtype)
     if backbone not in CLIP_ARCHS:
         raise ValueError(f"unknown CLIP backbone {backbone!r}")
     arch, m = CLIP_ARCHS[backbone], cfg.MODEL
@@ -131,6 +130,53 @@ def build_model(cfg) -> nn.Module:
         arch=arch, way=way, shot=shot, spm=dict(cfg.params),
         single_direct=bool(m.get("SINGLE_DIRECT", False)),
         train_remat_policy=remat_policy, **tower)
+
+
+def _resnet_head(cfg, name: str, way: int, shot: int, chunk: int,
+                 compute_dtype: Optional[torch.dtype]) -> nn.Module:
+    """A head of ``RESNET_HEADS`` on the torchvision trunk, wired as the
+    JAX ``build_model`` wires it: ``test-tiny-resnet`` is ResNet-18 at
+    width 8, any other backbone the ResNet of its name at width 64."""
+    backbone, m = cfg.MODEL.BACKBONE, cfg.MODEL
+    tiny = backbone == "test-tiny-resnet"
+    arch = "resnet18" if tiny else backbone
+    if arch not in RESNET_LAYERS:
+        raise ValueError(f"unknown ResNet backbone {backbone!r}")
+    seq_len = int(cfg.DATA.SEQ_LEN)
+    common = dict(way=way, shot=shot, arch=arch,
+                  backbone_width=8 if tiny else 64, encode_chunk=chunk,
+                  compute_dtype=compute_dtype)
+    if name == "ta2n":
+        return TA2NModel(
+            seq_len=seq_len, dropout=float(m.get("DROPOUT", 0.5)),
+            dist_norm=bool(m.get("DIST_NORM", False)),
+            metric=str(m.get("METRIC", "cos")), **common)
+    if name == "otam":
+        return OTAMModel(**common)
+    if name == "molo":
+        return MoLoModel(
+            seq_len=seq_len, num_class=int(cfg.DATA.get("NUM_CLASS", 64)),
+            use_classification=bool(m.get("USE_CLASSIFICATION", True)),
+            use_local=bool(m.get("USE_LOCAL", False)),
+            use_contrastive=bool(m.get("USE_CONTRASTIVE", True)),
+            temp_coff=float(m.get("TEMP_COFF", 0) or 0),
+            logit_balance=float(m.get("LOGIT_BALANCE_COFF", 0) or 0.3),
+            single_direct=bool(m.get("SINGLE_DIRECT", False)),
+            heads=int(m.get("HEAD", 0) or 8),
+            position_a=float(m.get("POSITION_A", 10.0)),
+            position_b=float(m.get("POSITION_B", 1.0)), **common)
+    # trx, strm and soap: TRX cross-transformers over frame tuples
+    tuples = dict(seq_len=seq_len,
+                  temp_set=tuple(m.get("TEMP_SET",
+                                       (2, 3) if name == "trx" else (2,))),
+                  out_dim=int(m.get("TRANS_LINEAR_OUT_DIM", 1152)),
+                  dropout=float(m.get("TRANS_DROPOUT", 0.1)), **common)
+    if name == "trx":
+        return TRXModel(**tuples)
+    if name == "strm":
+        return STRMModel(**tuples)
+    return SOAPModel(horizons=tuple(m.get("O", (2, 3))),
+                     cr=int(m.get("cr", 16)), **tuples)
 
 
 def _chunking(m, backbone: str, name: str = "clipspm"):

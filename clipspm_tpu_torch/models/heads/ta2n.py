@@ -37,7 +37,7 @@ from ...utils.precision import fp32_or_wider
 from ..backbones.clip import FP32BatchNorm
 from ..backbones.resnet import TorchResNet
 from ..blocks import group_by_class
-from ..visual import compute_autocast, encode_chunked
+from ..visual import compute_autocast, encode_frames
 
 # 9-point offset perturbation
 _PERTURB = np.asarray([[0, 0], [0, 1], [1, 0], [0, -1], [-1, 0],
@@ -272,12 +272,9 @@ class TA2NModel(nn.Module):
 
     def _trunk(self, images: torch.Tensor) -> torch.Tensor:
         """``[N, T, H, W, 3]`` frames -> ``[N, T, h, w, D]`` trunk maps
-        after dropout (call under the compute autocast)."""
-        N, T = images.shape[:2]
-        flat = images.reshape((N * T,) + tuple(images.shape[2:]))
-        fmap = self.feat_dropout(encode_chunked(self.backbone, flat,
-                                                self.encode_chunk))
-        return fmap.reshape((N, T) + tuple(fmap.shape[1:]))
+        after dropout."""
+        return self.feat_dropout(encode_frames(
+            self.backbone, images, self.encode_chunk, self.compute_dtype))
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         """``[N, T, H, W, 3]`` frames -> ``[N, T, h, w, D]`` TTM-aligned

@@ -1,6 +1,8 @@
 """Visual-tower helpers (leaf module: no head imports): the compute
-contexts, the chunked and rematerialised encode, and ``CLIPVideoModel``, the
-CLIP tower plus per-frame features that every CLIP head's model shares."""
+contexts, the chunked and rematerialised encode, the ResNet heads' per-frame
+encode (``encode_frames``), ``ResNetVideoModel``, the torchvision trunk
+that the cacheable ResNet heads share, and ``CLIPVideoModel``, the CLIP
+tower plus per-frame features that every CLIP head's model shares."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .backbones.clip import make_clip_visual  # noqa: F401 (re-export)
+from .backbones.resnet import TorchResNet
 
 # What each remat policy of the chunked train encode keeps across the
 # recompute, named as the JAX package names them (clipspm_tpu/models/
@@ -109,6 +112,63 @@ def encode_chunked(backbone: nn.Module, frames: torch.Tensor, chunk: int,
         return backbone(frames)
     return torch.cat([backbone(frames[i:i + chunk])
                       for i in range(0, N, chunk)], dim=0)
+
+
+def encode_frames(backbone: nn.Module, images: torch.Tensor, chunk: int,
+                  compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``[N, T, H, W, 3]`` frames through a per-frame trunk (``chunk``
+    frames a call in evaluation) under the compute autocast: ``[N, T,
+    ...]``, the trunk's output per frame (the ResNet heads' encode)."""
+    N, T = images.shape[:2]
+    flat = images.reshape((N * T,) + tuple(images.shape[2:]))
+    with compute_autocast(images.device, compute_dtype):
+        feats = encode_chunked(backbone, flat, chunk)
+    return feats.reshape((N, T) + tuple(feats.shape[1:]))
+
+
+class ResNetVideoModel(nn.Module):
+    """A torchvision ResNet trunk (``backbone``) feeding a matching head
+    over per-video features, which the feature cache can hold; the head is
+    the subclass's ``match_features``, and ``encode`` gives the trunk's
+    output per frame unless the subclass refines it (otam, trx, strm).
+
+    Shapes (S=way*shot, Q=way*queries, T=seq_len): images ``[S|Q, T, H, W,
+    3]`` float (0-1); support_labels ``[S]`` episode-relative. The real
+    labels and text tables are accepted and not read.
+    """
+
+    def __init__(self, way: int, shot: int, arch: str, backbone_width: int,
+                 output: str, encode_chunk: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.way, self.shot = way, shot
+        self.encode_chunk, self.compute_dtype = encode_chunk, compute_dtype
+        self.backbone = TorchResNet(arch=arch, output=output,
+                                    width=backbone_width)
+
+    def forward(self, support_images, target_images, support_labels,
+                real_support_labels=None, real_target_labels=None,
+                text_train=None, text_test=None) -> Dict[str, torch.Tensor]:
+        S = support_images.shape[0]
+        feats = self.encode(torch.cat([support_images, target_images]))
+        return self.match_features(feats[:S], feats[S:], support_labels)
+
+    def feature_cacheable(self) -> bool:
+        """Per-video features fully determine the head's inputs
+        (train/feature_cache.py)."""
+        return True
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """``[N, T, H, W, 3]`` frames -> ``[N, T, ...]`` trunk outputs."""
+        return encode_frames(self.backbone, images, self.encode_chunk,
+                             self.compute_dtype)
+
+    def match_features(self, su, qu, support_labels, real_support_labels=None,
+                       real_target_labels=None, text_train=None,
+                       text_test=None) -> Dict[str, torch.Tensor]:
+        """The head over precomputed features ``su [S,T,...]`` /
+        ``qu [Q,T,...]``."""
+        raise NotImplementedError
 
 
 class CLIPVideoModel(nn.Module):

@@ -1,7 +1,8 @@
 """Episodic losses and metrics + per-model loss dispatch.
 
-Port of ``clipspm_tpu/train/losses.py`` for the ported heads (clipspm,
-clipfsar, cpm2c; sten and ta2n through the default branch):
+Port of ``clipspm_tpu/train/losses.py``: the branches of all ten heads
+(clipspm, clipfsar, cpm2c, strm, molo, soap; otam, trx, sten and ta2n
+through the default branch).
 ``episodic_ce`` is a logsumexp over the sample dim (size 1 in practice)
 followed by a **sum** over queries; ``aggregate_accuracy`` is the argmax of
 that logsumexp.
@@ -16,9 +17,6 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.precision import fp32_or_wider
-
-# loss branches of the JAX dispatch not ported yet: their heads are not
-PENDING_BRANCHES = ("strm", "molo", "soap")
 
 
 def episodic_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -61,14 +59,23 @@ def loss_and_acc(model_name: str, outputs: Dict[str, torch.Tensor],
     video-to-text cross-entropy over the real labels of support and query;
     cpm2c weighs its class, local and global cross-entropies by
     :func:`cpm2c_lambdas` and adds its consistency distance in training
-    only (``train``); the other branches read neither ``cfg`` nor
-    ``train``."""
+    only (``train``); strm adds 0.1 times its tuple-distance logits, to the
+    logits and as a cross-entropy of their own; soap adds its ``t_loss``;
+    molo, in training only, adds the classifier's, the four contrastive
+    and the reconstruction terms (below). The other branches read neither
+    ``cfg`` nor ``train``."""
     tpb = float(tasks_per_batch)
     logits = outputs.get("logits")
-    if model_name in PENDING_BRANCHES:
-        raise NotImplementedError(
-            f"the {model_name!r} loss branch is not ported yet (ROADMAP.md, "
-            "open item 'the remaining ResNet heads')")
+    if model_name == "strm":
+        lmd = 0.1
+        post_pat = outputs["logits_post_pat"]
+        joint = logits + lmd * post_pat
+        loss = (episodic_ce(joint, target_labels) / tpb
+                + lmd * episodic_ce(post_pat, target_labels) / tpb)
+        return loss, aggregate_accuracy(joint, target_labels)
+    if model_name == "molo":
+        return _molo_loss(outputs, target_labels, real_support_labels,
+                          real_target_labels, tpb, cfg, train)
     if model_name == "clipfsar":
         both_real = torch.cat([real_support_labels, real_target_labels])
         cls_v = float(cfg.MODEL.USE_CLASSIFICATION_VALUE)
@@ -92,4 +99,37 @@ def loss_and_acc(model_name: str, outputs: Dict[str, torch.Tensor],
     loss = episodic_ce(logits, target_labels) / tpb
     if model_name == "clipspm":
         loss = loss + 0.001 * outputs["dists"]
+    elif model_name == "soap":
+        loss = loss + outputs["t_loss"]
     return loss, aggregate_accuracy(logits, target_labels)
+
+
+def _molo_loss(outputs, target_labels, real_support_labels,
+               real_target_labels, tpb: float, cfg, train: bool):
+    """molo's branch. In evaluation the cross-entropy over ``tpb``. In
+    training: the cross-entropy and ``USE_CLASSIFICATION_VALUE`` times the
+    classifier's over the real labels of support and query (each repeated
+    per token with ``USE_LOCAL``), that sum over ``tpb`` again, so the main
+    cross-entropy is divided by ``tpb`` twice, as in the JAX dispatch; plus
+    ``USE_CONTRASTIVE_COFF`` times each of the four contrastive
+    cross-entropies over ``tpb``, and ``RECONS_COFF`` times
+    ``loss_recons``."""
+    logits = outputs["logits"]
+    ce = episodic_ce(logits, target_labels) / tpb
+    acc = aggregate_accuracy(logits, target_labels)
+    if not train:
+        return ce, acc
+    both_real = torch.cat([real_support_labels, real_target_labels])
+    n_logits = outputs["class_logits"].shape[1]
+    if n_logits != both_real.shape[0]:
+        both_real = torch.repeat_interleave(both_real,
+                                            n_logits // both_real.shape[0])
+    cls_v = float(cfg.MODEL.USE_CLASSIFICATION_VALUE)
+    contr = float(cfg.MODEL.USE_CONTRASTIVE_COFF)
+    recons = float(cfg.MODEL.RECONS_COFF)
+    loss = (ce + cls_v * episodic_ce(outputs["class_logits"], both_real)
+            ) / tpb
+    for key in ("logits_s2q", "logits_q2s", "logits_s2q_motion",
+                "logits_q2s_motion"):
+        loss = loss + contr * episodic_ce(outputs[key], target_labels) / tpb
+    return loss + recons * outputs["loss_recons"], acc

@@ -5,9 +5,10 @@ weights load from a local OpenAI ``.pt`` (``$CLIP_WEIGHTS_DIR`` or
 ``~/.cache/clip``) straight into the port's OpenAI-named modules, never from
 the network; without one the towers start from a seeded random init and an
 evaluation refuses to run unless random weights are explicitly allowed.
-Heads that are not CLIP heads (``ta2n``) build no CLIP model and no text
-tables: their tables are ``[1, 1]`` zeros and their trunk starts from the
-seeded random init, as in the JAX package (which loads no ImageNet weights).
+Heads on the torchvision ResNet trunk (ta2n, otam, trx, strm, soap, molo)
+build no CLIP model and no text tables: their tables are ``[1, 1]`` zeros
+and their trunk starts from the seeded random init, as in the JAX package
+(which loads no ImageNet weights).
 Every run gets the test split's prefetching ``EpisodeLoader``, seeded with
 ``MODEL.SEED + 1`` (the uncached evaluator's stream); a training run
 (``TEST.ONLY_TEST`` false) also gets the train split's, seeded with

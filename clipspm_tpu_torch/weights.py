@@ -12,7 +12,8 @@
   ``weight/bias/running_mean/running_var``, and ``resblock_i`` becomes
   ``resblocks.i``. The clipspm head's Conv1D kernel ``[3, in, out]`` becomes
   ``[out, in, 3]``, a Conv3d kernel ``[kt, kh, kw, in, out]`` becomes
-  ``[out, in, kt, kh, kw]``. The ViT tower's patch kernel ``[p, p, 3, W]``
+  ``[out, in, kt, kh, kw]``; a head's Conv2d kernel ``[kh, kw, in, out]``
+  becomes ``[out, in, kh, kw]`` too. The ViT tower's patch kernel ``[p, p, 3, W]``
   becomes ``[W, 3, p, p]``; its ``class_embedding``,
   ``positional_embedding`` and ``proj`` carry across unchanged. The
   torchvision ResNet trunk takes
@@ -51,9 +52,11 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     default), norms at identity with running stats (0, 1), embeddings and
     CLIP's extra parameters at the JAX package's scales (the ViT tower's
     class and positional embeddings and ``proj`` at ``width**-0.5 N(0,
-    1)``), scalar gains at 1, cpm2c's class tokens at ``N(0, 1)``;
-    TA2N's ``loc_fc2`` at a zero kernel and bias ``[2, 0]`` and ``mv_fc2``
-    at zero, as the JAX package initialises them.
+    1)``), scalar gains at 1 (molo's ``scale_motion`` too), cpm2c's and
+    molo's class tokens at ``N(0, 1)``; TA2N's ``loc_fc2`` at a zero kernel
+    and bias ``[2, 0]`` and ``mv_fc2`` at zero, otam's token bank ``mo``
+    xavier-normal, strm's ``gamma`` at 0 and soap's ``lmd`` at 0.5, as the
+    JAX package initialises them.
     """
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
@@ -91,10 +94,17 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             mod.mv_fc2.bias.zero_()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if p.dim() == 0 and leaf in ("mo_alpha1", "scale"):
+        if p.dim() == 0 and leaf in ("mo_alpha1", "scale", "scale_motion"):
             p.fill_(1.0)
+        elif p.dim() == 0 and leaf == "lmd":
+            p.fill_(0.5)
+        elif leaf == "gamma":
+            p.zero_()
         elif leaf in ("class_token", "class_token_motion"):
             _normal_(p, 1.0, gen)
+        elif leaf == "mo" and p.dim() == 3:
+            # xavier-normal over (fan_in, fan_out) = the last two axes
+            _normal_(p, (2.0 / (p.shape[-2] + p.shape[-1])) ** 0.5, gen)
     return model
 
 
@@ -240,7 +250,8 @@ def clip_state_dict(variables: Mapping[str, Any]) -> StateDict:
 def head_state_dict(params: Mapping[str, Any], prefix: str = "",
                     stats: Optional[Mapping[str, Any]] = None) -> StateDict:
     """A JAX head tree -> the port's head keys. Names map one to one (path
-    joined by dots); Dense, Conv1D and Conv3d kernels are transposed; a
+    joined by dots); Dense, Conv1D, Conv2d and Conv3d kernels are
+    transposed; a
     norm with ``batch_stats`` (from ``stats``, the same tree shape) is a
     BatchNorm, one without is a LayerNorm (``scale`` becomes ``weight``)."""
     out: StateDict = {}
@@ -253,7 +264,8 @@ def head_state_dict(params: Mapping[str, Any], prefix: str = "",
                 out[key] = _t(v)
             elif "kernel" in v:
                 k = _t(v["kernel"])
-                perm = {2: (1, 0), 3: (2, 1, 0), 5: (4, 3, 0, 1, 2)}[k.dim()]
+                perm = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1),
+                        5: (4, 3, 0, 1, 2)}[k.dim()]
                 out[f"{key}.weight"] = k.permute(*perm).contiguous()
                 if "bias" in v:
                     out[f"{key}.bias"] = _t(v["bias"])
@@ -269,9 +281,10 @@ def head_state_dict(params: Mapping[str, Any], prefix: str = "",
     return out
 
 
-def ta2n_state_dict(variables: Mapping[str, Any]) -> StateDict:
-    """JAX ``TA2NModel`` variables -> ``models.heads.ta2n.TA2NModel`` state
-    dict (``backbone.*`` in torchvision's keys, the rest by name)."""
+def resnet_model_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX variables of a head on the torchvision ResNet trunk (ta2n, otam,
+    trx, strm, soap, molo) -> the port's state dict (``backbone.*`` in
+    torchvision's keys, the rest by name, BatchNorm statistics included)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out = torchvision_resnet_state_dict(params["backbone"], stats["backbone"],
@@ -283,18 +296,20 @@ def ta2n_state_dict(variables: Mapping[str, Any]) -> StateDict:
 
 def model_state_dict(variables: Mapping[str, Any]) -> StateDict:
     """JAX model variables -> the port's state dict, by the model the tree
-    is of: ``TA2NModel`` (``backbone`` + ``ttm`` + ``acm``), or a CLIP
-    model: ``backbone`` (the CLIP tower) plus ``head`` (``CLIPSPMModel``)
-    or the head's own top-level parameters (clipfsar, sten, cpm2c)."""
+    is of: a torchvision ResNet trunk (``backbone`` with ``bn1`` and no
+    attention pool) and its head, or a CLIP model: ``backbone`` (the CLIP
+    tower) plus ``head`` (``CLIPSPMModel``) or the head's own top-level
+    parameters (clipfsar, sten, cpm2c)."""
     params = variables["params"]
-    if "ttm" in params:
-        return ta2n_state_dict(variables)
     if "backbone" not in params:
         raise NotImplementedError(
             f"no port of a model with parameters {sorted(params)}; the port "
-            "carries clipspm, clipfsar, sten, cpm2c and ta2n")
+            "carries every head of the JAX package")
+    trunk = params["backbone"]
+    if "bn1" in trunk and "attnpool" not in trunk:
+        return resnet_model_state_dict(variables)
     stats = variables.get("batch_stats", {})
-    out = visual_state_dict(params["backbone"], stats.get("backbone", {}),
+    out = visual_state_dict(trunk, stats.get("backbone", {}),
                             prefix="backbone.")
     if "head" in params:
         out.update(head_state_dict(params["head"], prefix="head."))

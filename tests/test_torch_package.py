@@ -6,11 +6,16 @@ import importlib
 import os
 import pkgutil
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 import clipspm_tpu_torch
-from clipspm_tpu_torch import resolve_device
+from clipspm_tpu.models.fsar import build_model as jax_build_model
+from clipspm_tpu.utils.config import load_config as jax_load
+from clipspm_tpu_torch import resolve_device, weights
 from clipspm_tpu_torch.cli.run import main as port_cli
 from clipspm_tpu_torch.models.fsar import build_model
 from clipspm_tpu_torch.models.heads.clipfsar import CLIPFSARModel
@@ -92,7 +97,7 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("opts,error", [
-    (["MODEL.NAME=otam"], NotImplementedError),     # an unported head
+    (["MODEL.FAST_SOFTMAX=true"], NotImplementedError),   # opt-in extras
     (["TEST.ONLY_TEST=true", "TEST.TEST_MODEL_PATH=/nonexistent/ckpt"],
      FileNotFoundError),
     (["TEST.ONLY_TEST=true", "DEVICE.NUM_CHIPS=2"],
@@ -133,25 +138,86 @@ def test_existing_test_model_path_is_refused(tmp_path):
     assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
 
 
-UNPORTED_HEADS = ["otam", "trx", "molo", "strm", "soap"]
+RESNET_HEAD_CONFIGS = sorted(
+    os.path.join(name, f) for name in ("otam", "trx", "strm", "soap", "molo")
+    for f in os.listdir(os.path.join(CONFIGS, name)) if f.endswith(".yaml"))
 
 
-@pytest.mark.parametrize("name", UNPORTED_HEADS)
-def test_other_heads_raise_not_implemented(name):
-    cfg = load_config(HMDB, opts=[f"MODEL.NAME={name}"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+@pytest.mark.parametrize("config", RESNET_HEAD_CONFIGS)
+def test_resnet_head_configs_build_and_carry_the_jax_tree(config):
+    """Each shipped config of the five ResNet heads builds on
+    ``test-tiny-resnet``, and the JAX model's parameter and statistics tree
+    (its shapes, as flax's init makes them) maps onto the port's
+    ``state_dict`` key for key and shape for shape, no key left over."""
+    path = os.path.join(CONFIGS, config)
+    opts = ["MODEL.BACKBONE=test-tiny-resnet"]
+    cfg = load_config(path, opts=opts)
+    model = build_model(cfg)
+    way, shot = int(cfg.TRAIN.WAY), int(cfg.TRAIN.SHOT)
+    S, T = way * shot, int(cfg.DATA.SEQ_LEN)
+    jmodel = jax_build_model(jax_load(path, opts=opts))
+    shapes = jax.eval_shape(
+        lambda *a: jmodel.init(jax.random.PRNGKey(0), *a),
+        jnp.zeros((S, T, 64, 64, 3)), jnp.zeros((way, T, 64, 64, 3)),
+        jnp.arange(S, dtype=jnp.int32) % way)
+    carried = weights.model_state_dict(jax.tree_util.tree_map(
+        lambda x: np.zeros(x.shape, np.float32), dict(shapes)))
+    mine = model.state_dict()
+    assert set(carried) == set(mine)
+    assert all(tuple(carried[k].shape) == tuple(mine[k].shape)
+               for k in mine)
+    model.load_state_dict(carried, strict=True)
 
 
-@pytest.mark.parametrize("name", UNPORTED_HEADS)
+@pytest.mark.parametrize("name", ["otam", "trx", "molo", "strm", "soap"])
 @pytest.mark.parametrize("only_test", ["true", "false"])
-def test_cli_refuses_unported_heads_before_model_build(name, only_test,
-                                                       tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli(["--cfg", HMDB, "--device", "cpu", f"MODEL.NAME={name}",
-                  f"TEST.ONLY_TEST={only_test}",
-                  f"CHECKPOINT.CHECKPOINT_DIR={tmp_path}"])
-    assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
+def test_cli_check_before_the_build_passes_the_resnet_heads(name, only_test):
+    """The CLI's refusals before anything is built let each of the five
+    heads through, in training and in ONLY_TEST runs."""
+    from clipspm_tpu_torch.cli.run import _refuse_what_is_not_carried
+
+    cfg = load_config(os.path.join(CONFIGS, name, "ucf.yaml"),
+                      opts=[f"TEST.ONLY_TEST={only_test}"])
+    _refuse_what_is_not_carried(cfg)
+
+
+@pytest.mark.parametrize("name", ["otam", "trx", "strm", "soap", "molo"])
+def test_build_model_builds_resnet_heads_at_full_width(name):
+    """``configs/<name>/ucf.yaml`` as shipped: ResNet-50 (feature width
+    2048), bf16, and each head's widths from the config."""
+    model = build_model(load_config(os.path.join(CONFIGS, name,
+                                                 "ucf.yaml")))
+    assert model.backbone.arch == "resnet50"
+    assert model.backbone.feature_dim == 2048
+    assert model.compute_dtype == torch.bfloat16          # USE_AMP: true
+    assert (model.way, model.shot) == (5, 1)
+    if name == "otam":
+        assert tuple(model.mo.mo.shape) == (1, 49, 2048)
+        assert model.mo.trans_1.attn_0.to_q.out_features == 8 * 256
+    if name in ("trx", "strm", "soap"):
+        sets = {"trx": (2, 3), "strm": (2,), "soap": (2, 3)}[name]
+        assert model.temp_set == sets
+        for n in sets:
+            tct = getattr(model, f"tct_{n}")
+            assert (tct.k_linear.in_features, tct.k_linear.out_features) \
+                == (n * 2048, 1152)
+            assert tct.drop.p == 0.1
+    if name == "strm":
+        assert model.tdl_2.clsW.out_features == 1024
+        assert model.attn_pat.inp_fc.out_features == 1024
+    if name == "soap":
+        prior = model.tripel_prior
+        assert prior.horizons == (1, 2, 3)
+        # the horizons' frames: 1*7 + 2*6 + 3*5 = 34, mixed back to T=8
+        assert (prior.hm_lin.in_features, prior.hm_lin.out_features) \
+            == (34, 8)
+        assert prior.conv_ch1.out_features == 16
+    if name == "molo":
+        assert model.num_class == 70 and not model.use_local
+        assert model.motion_reduce.out_channels == 256
+        assert model.temporal_atte_before.attn_0.dim_head == 256
+        assert (model.logit_balance, model.temp_coff) == (0.3, 0.0)
+        assert model.scale.shape == model.scale_motion.shape == ()
 
 
 def test_build_model_builds_ta2n_at_full_width():
