@@ -18,6 +18,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
    directions in one launch), the fused modes also against the op chain
    each launch replaces; K1 also at cpm2c's motion stream (L=7) and at the
    otam head's D=2048, lambda 0.1;
+   quant: MODEL.INT8_EVAL's int8 GEMM (``torch._int_mm``) at ViT-B/16's
+   four projection shapes, its int32 sums bit-equal to the plain float64
+   product, timed beside the bf16 matmul; a refused shape raises; the
+   bf16 BatchNorm of MODEL.BF16_NORMS on the card against the CPU;
 4. the main paths at full width, each through the port's CLI on random
    weights over a synthetic split, with every kernel launch counter set to
    0 just before the path and read just after:
@@ -29,6 +33,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
      UCF-layout split (K2's fused mode, 1 launch per episode);
    - clipspm-vit: the same on the ViT-B/16 tower (feature width 512),
      whose fp32 features on the card are also held against the CPU's;
+     clipspm-vit-switched: the same with MODEL.INT8_EVAL, FAST_SOFTMAX and
+     BF16_NORMS (50 episodes; every block's four projections through the
+     int8 GEMM);
    - clipfsar, cpm2c (HMDB layout, RN50, 5-way 1-shot, bf16; 1 and 2 K1
      launches per episode, cpm2c's second at L=7) and sten (UCF layout; no
      kernel): feature-cached evaluation, each head's fp32 logits on the
@@ -64,10 +71,17 @@ Phases, in order; any failure ends the run with a nonzero exit:
      episode, Q=20 in training) and molo-train (molo/ucf.yaml, Adam, steps
      of 4, the decoder's BatchNorm in training mode, uncached validation
      and test; no kernel), the same stages;
-   each train path also profiles one optimizer step; the clipspm and ta2n
-   ones hold one fp32 train step on the card and on the CPU against an fp64
-   step on the CPU, the other heads' hold the head's fp32 gradients (and
-   its inputs') on the card against the CPU's.
+   each train path also profiles one optimizer step (clipspm-vit-train
+   also times a step and reads the peak memory under each of the five
+   remat policies); the clipspm and ta2n ones hold one fp32 train step on
+   the card and on the CPU against an fp64 step on the CPU, the other
+   heads' hold the head's fp32 gradients (and its inputs') on the card
+   against the CPU's (molo's also in fp64 on the card against the CPU's
+   fp64);
+   - clipspm-vit-train-attn and clipspm-vit-train-mlp: clipspm-vit-train
+     under MODEL.TRAIN_REMAT_POLICY attn and mlp, one 16-episode Adam step
+     through the CLI (3 K1 launches an episode), then one fp32 step's
+     gradients on the card under the policy against "full"'s.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -143,7 +157,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the card's name and power limit as nvidia-smi reports them (phase_device),
+# written beside the measurements of the int8 GEMM and the remat policies
+CARD = None
+
+
 def phase_device() -> dict:
+    global CARD
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
     smi = subprocess.run(
@@ -151,6 +171,7 @@ def phase_device() -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
+    CARD = smi
     # fp32 matmuls in full fp32 (PyTorch's default, stated): the plain
     # versions' cosine tables are held against the kernels' FMA dot products
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -467,6 +488,126 @@ def phase_k2() -> dict:
                       **table[(25, 10, 8, 0.1, 0.0)]}}
 
 
+# The int8 GEMM of MODEL.INT8_EVAL (ops/quant.py: torch._int_mm, cuBLASLt's
+# int8 tensor-core product; no hand kernel, as the JAX package leaves this
+# product to XLA) at ViT-B/16's four projection shapes in the eval encode:
+# rows = one eval chunk of 30 frames x 197 tokens, K -> N of in_proj,
+# out_proj, c_fc and c_proj. Its int32 sums must equal the plain version's
+# (the codes multiplied in float64, exact) bit for bit; timed beside the
+# same-shape bf16 matmul, and the whole dynamic-int8 projection (both
+# quantisations, the GEMM, the rescale) beside the bf16 F.linear.
+QUANT_ROWS = 30 * 197
+QUANT_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def phase_quant() -> dict:
+    from clipspm_tpu_torch.ops import quant
+    from clipspm_tpu_torch.tools.timing import eager_ms, graph_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    out = {"card": CARD, "rows": QUANT_ROWS, "shapes": []}
+    for K, N in QUANT_SHAPES:
+        a = torch.randint(-127, 128, (QUANT_ROWS, K), generator=gen,
+                          dtype=torch.int8).to(dev)
+        b = torch.randint(-127, 128, (N, K), generator=gen,
+                          dtype=torch.int8).to(dev)
+        before = quant.launches
+        got = quant.int8_mm(a, b)
+        if quant.launches != before + 1 or got.dtype != torch.int32:
+            raise AssertionError(f"int8 GEMM [{QUANT_ROWS}, {K}] x [{K}, "
+                                 f"{N}] did not run as one int32 launch")
+        want = quant.int8_mm_plain(a, b)
+        if not torch.equal(got, want):
+            diff = (got.long() - want.long()).abs().max().item()
+            raise AssertionError(f"int8 GEMM [{QUANT_ROWS}, {K}] x [{K}, "
+                                 f"{N}]: int32 sums differ from the plain "
+                                 f"float64 product by up to {diff}")
+        x = torch.randn(QUANT_ROWS, K, generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn(N, K, generator=gen) * K ** -0.5).to(dev)
+        bias = torch.randn(N, generator=gen).to(dev)
+        wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+        # the whole int8 projection on the same fp32 inputs, card vs CPU:
+        # the same IEEE elementwise steps around an exact product
+        xf = torch.randn(QUANT_ROWS, K, generator=gen).to(dev)
+        lin_err = check_int8_projection(xf, w, bias,
+                                        quant.int8_linear(xf, w, bias))
+        row = {"K": K, "N": N, "int32_sums": "bit-equal to float64",
+               "int8_linear_vs_cpu_max_abs_diff": lin_err,
+               "int8_gemm_ms": eager_ms(lambda: quant.int8_mm(a, b), 50),
+               "int8_gemm_device_ms": graph_ms(lambda: quant.int8_mm(a, b),
+                                               50),
+               "bf16_matmul_ms": eager_ms(lambda: torch.matmul(
+                   x, wb.t()), 50),
+               "bf16_matmul_device_ms": graph_ms(lambda: torch.matmul(
+                   x, wb.t()), 50),
+               "int8_linear_ms": eager_ms(lambda: quant.int8_linear(
+                   x, w, bias), 50),
+               "bf16_linear_ms": eager_ms(lambda: F.linear(x, wb, bb), 50)}
+        ops = 2.0 * QUANT_ROWS * K * N
+        row["int8_gemm_tops"] = ops / row["int8_gemm_device_ms"] / 1e9
+        row["bf16_matmul_tflops"] = ops / row["bf16_matmul_device_ms"] / 1e9
+        log(f"int8 GEMM [{QUANT_ROWS}, {K}] x [{K}, {N}]: int32 sums "
+            f"bit-equal to the float64 product; {row['int8_gemm_ms']:.4f} ms "
+            f"(device {row['int8_gemm_device_ms']:.4f}) against bf16 "
+            f"matmul {row['bf16_matmul_ms']:.4f} ms (device "
+            f"{row['bf16_matmul_device_ms']:.4f}); whole int8 projection "
+            f"{row['int8_linear_ms']:.4f} ms against bf16 F.linear "
+            f"{row['bf16_linear_ms']:.4f}")
+        out["shapes"].append(row)
+    # a shape the int8 GEMM refuses (16 rows) raises: no float fallback
+    a = torch.ones(16, 64, dtype=torch.int8, device=dev)
+    try:
+        quant.int8_mm(a, a)
+    except RuntimeError as e:
+        out["refused_16_rows"] = str(e).splitlines()[0][:120]
+    else:
+        raise AssertionError("the int8 GEMM took 16 rows without raising")
+    out["bf16_batchnorm"] = check_bf16_batchnorm()
+    log(json.dumps({"quant": out}))
+    return out
+
+
+def check_bf16_batchnorm() -> dict:
+    """MODEL.BF16_NORMS' BatchNorm (``FP32BatchNorm2d(fp32=False)``) on the
+    card takes bf16 input with fp32 statistics and parameters and returns
+    bf16, in evaluation and in training, as on the CPU: outputs within 2
+    bf16 ulps of the largest, running variance (flax's biased fold) within
+    1e-5 relative."""
+    from clipspm_tpu_torch.models.backbones.clip import FP32BatchNorm2d
+
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn(8, 256, 14, 14, generator=gen).to(torch.bfloat16)
+    bn = FP32BatchNorm2d(256, fp32=False)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(256, generator=gen) + 0.5)
+        bn.bias.copy_(torch.randn(256, generator=gen))
+    out = {}
+    for mode in ("eval", "train"):
+        cpu, card = bn, FP32BatchNorm2d(256, fp32=False).cuda()
+        card.load_state_dict(bn.state_dict())
+        cpu.train(mode == "train")
+        card.train(mode == "train")
+        with torch.no_grad():
+            want, got = cpu(x), card(x.cuda()).cpu()
+        if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 BatchNorm ({mode}) returned "
+                                 f"{got.dtype} on the card, {want.dtype} on "
+                                 "the CPU")
+        err = (got.float() - want.float()).abs().max().item()
+        largest = want.float().abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(largest)) - 7)
+        var_rel = ((card.running_var.cpu() - cpu.running_var).norm()
+                   / cpu.running_var.norm()).item()
+        if err > 2 * ulp or var_rel > 1e-5:
+            raise AssertionError(f"bf16 BatchNorm ({mode}) on the card vs "
+                                 f"the CPU: {err:.3e} (ulp {ulp:.3e}), "
+                                 f"running var {var_rel:.3e}")
+        out[mode] = {"max_abs_diff": err, "bf16_ulp_of_largest": ulp,
+                     "running_var_rel": var_rel}
+    return out
+
+
 # The main paths, each a shipped config at full width on random weights, a
 # few hundred episodes over a synthetic split in its dataset's layout
 # (frames of 256x256, 10 per video):
@@ -482,6 +623,15 @@ def phase_k2() -> dict:
 #   30 frames a tower call), the clipspm path's split; 3 fused K1 launches
 #   per episode at D=512. Its tower's fp32 features are held against the
 #   CPU's too;
+# - clipspm-vit-switched: the same with the tower's three switches,
+#   MODEL.INT8_EVAL (the blocks' four projections through the int8 GEMM in
+#   evaluation: 4 GEMMs a block and no float projection, counted per tower
+#   call), MODEL.FAST_SOFTMAX (the attention spelled out, its softmax the
+#   max-shifted one in bf16) and MODEL.BF16_NORMS (LayerNorms in bf16);
+#   50 episodes, 3 fused K1 launches each. Its tower on the card is held
+#   against the CPU's (``check_tower_against_cpu``): its fp32 features
+#   without int8 as the clipspm-vit path's are, and with int8 each of its
+#   48 projections against the plain version on the input it got;
 # - clipfsar: configs/clipfsar/hmdb.yaml (RN50, 5-way 1-shot 1-query, bf16),
 #   the clipspm path's split; one bidirectional OTAM per episode (1 fused K1
 #   launch);
@@ -514,6 +664,13 @@ PATHS = {
                         frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
                         classes=10, videos=12, launches={"K1": 3, "K2": 0},
                         metrics=(None,), tower_check=True),
+    "clipspm-vit-switched": dict(
+        cfg="configs/clipspm/hmdb.yaml",
+        opts=("MODEL.BACKBONE=ViT-B/16", "MODEL.INT8_EVAL=true",
+              "MODEL.FAST_SOFTMAX=true", "MODEL.BF16_NORMS=true"),
+        frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN", classes=10,
+        videos=12, launches={"K1": 3, "K2": 0}, metrics=(None,),
+        tower_check=True, int8=True, episodes=50),
     "clipfsar": dict(cfg="configs/clipfsar/hmdb.yaml", opts=(),
                      frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
                      classes=10, videos=12, launches={"K1": 1, "K2": 0},
@@ -549,11 +706,11 @@ PATHS = {
 }
 CACHED_PATHS = tuple(n for n, spec in PATHS.items()
                      if spec.get("cached", True))
-# episodes of each cached eval path (cut from 300, then from 200, to make
-# room for the uncached paths and the other heads' paths within the
-# script's time; the head rate is read over them, the rest of a path's
+# episodes of each cached eval path (cut from 300, then to 200 and 100, then
+# to 50 to make room for the tower's switches and the remat policies within
+# the script's time; the head rate is read over them, the rest of a path's
 # time does not depend on them)
-MAIN_EPISODES = 100
+MAIN_EPISODES = 50
 SPLIT_FRAMES, SPLIT_PX = 10, 256
 SEQ_LEN = 8
 # the head on the card (fp32, no TF32) against the head on the CPU (fp32):
@@ -563,6 +720,11 @@ HEAD_TOL = 1e-4
 # kernel) against the CPU's over 4 frames: max abs diff <= this times the
 # largest feature magnitude
 TOWER_TOL, TOWER_FRAMES = 1e-4, 4
+# an int8 projection (MODEL.INT8_EVAL) on the card against the plain
+# version on the CPU from the same input: the same codes around an exact
+# product, then the same IEEE elementwise steps, so 1e-6 of the largest
+# output (phase quant, and each projection of the switched tower)
+INT8_LINEAR_TOL = 1e-6
 # a whole model (soap, molo) on the card against the CPU over one episode,
 # fp32: max abs logit diff <= this times the largest logit, or than 1.
 # molo's logits are sums of 1 - cos over frame pairs, whose unit is 1: on
@@ -813,33 +975,113 @@ def check_head_against_cpu(rec: _Recorder, argv, metrics) -> dict:
     return worst
 
 
-def check_tower_against_cpu(rec: _Recorder) -> dict:
+def check_int8_projection(x, weight, bias, y) -> float:
+    """One int8 projection ``y`` of the card against the plain version on
+    the CPU from the same input: the same codes and scales, int32 sums
+    bit-equal to the float64 product, ``y`` within INT8_LINEAR_TOL of the
+    largest output. Returns the max abs diff."""
+    from clipspm_tpu_torch.ops import quant
+
+    K = x.shape[-1]
+    xq, sx = quant.quantize_rows(x.float())
+    wq, sw = quant.quantize_rows(weight.float())
+    cx, csx = quant.quantize_rows(x.float().cpu())
+    cw, csw = quant.quantize_rows(weight.float().cpu())
+    if not all(torch.equal(a.cpu(), b) for a, b in
+               ((xq, cx), (sx, csx), (wq, cw), (sw, csw))):
+        raise AssertionError(f"int8 projection {list(x.shape)} -> "
+                             f"{weight.shape[0]}: codes or scales differ "
+                             f"from the CPU's")
+    if not torch.equal(quant.int8_mm(xq.reshape(-1, K), wq).cpu(),
+                       quant.int8_mm_plain(cx.reshape(-1, K), cw)):
+        raise AssertionError(f"int8 projection {list(x.shape)} -> "
+                             f"{weight.shape[0]}: int32 sums differ from "
+                             f"the float64 product")
+    want = quant.int8_linear(x.cpu(), weight.cpu(),
+                             None if bias is None else bias.cpu())
+    err = (y.cpu() - want).abs().max().item()
+    if not err <= INT8_LINEAR_TOL * want.abs().max().item():
+        raise AssertionError(f"int8 projection {list(x.shape)} -> "
+                             f"{weight.shape[0]} on the card vs the CPU: "
+                             f"{err:.3e}")
+    return err
+
+
+def check_tower_against_cpu(rec: _Recorder, int8: bool = False) -> dict:
     """The visual tower on the card (fp32 weights, no autocast, no TF32 in
-    cuBLAS or cuDNN) against a CPU copy on the same seeded frames."""
+    cuBLAS or cuDNN) against a CPU copy on the same seeded frames: max abs
+    diff within TOWER_TOL of the largest feature. With ``int8`` (a ViT
+    under MODEL.INT8_EVAL) that comparison runs with the int8 projections
+    off, and the card's int8 forward of the same frames is then held
+    projection by projection, each against the plain version from the very
+    input it got on the card (``check_int8_projection``): the float steps
+    and the int8 steps of the switched tower are each held tight. The int8
+    features of the two sides are reported beside the CPU's own int8
+    error, not held: where the two sides' fp32 activations straddle a
+    rounding boundary of a row's scale, one takes the next code, and the
+    flip carries on block after block."""
     import copy
+
+    from clipspm_tpu_torch.models.backbones import clip
 
     tower = rec.learner.model.backbone
     cpu = copy.deepcopy(tower).cpu().float().eval()
     R = rec.learner.model.arch.image_resolution
     x = torch.rand(TOWER_FRAMES, R, R, 3,
                    generator=torch.Generator().manual_seed(7))
+    blocks = ([b for m in (tower, cpu) for b in m.transformer.resblocks]
+              if int8 else [])
+    int8_linear, projections = clip.int8_linear, []
+
+    def held(x, weight, bias=None):
+        y = int8_linear(x, weight, bias)
+        projections.append(check_int8_projection(x, weight, bias, y))
+        return y
+
+    def switch(on):
+        for block in blocks:
+            block.int8_eval = on
+
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
+            switch(False)
             got = tower(x.to(rec.learner.device)).cpu()
             want = cpu(x)
+            if int8:
+                switch(True)
+                clip.int8_linear = held
+                card_q = tower(x.to(rec.learner.device)).cpu()
+                clip.int8_linear = int8_linear
+                cpu_q = cpu(x)
     finally:
+        clip.int8_linear = int8_linear
+        switch(True)
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
     err, scale = (got - want).abs().max().item(), want.abs().max().item()
     if not err <= TOWER_TOL * scale:
         raise AssertionError(f"the tower on the card vs the CPU: max abs "
                              f"diff {err:.3e}, largest feature {scale:.3e}")
-    return {"frames": TOWER_FRAMES, "max_abs_diff": err,
-            "max_abs_feature": scale, "tol_of_max": TOWER_TOL}
+    res = {"frames": TOWER_FRAMES, "max_abs_diff": err,
+           "max_abs_feature": scale, "tol_of_max": TOWER_TOL}
+    if int8:
+        want_n = 4 * len(tower.transformer.resblocks)
+        if len(projections) != want_n:
+            raise AssertionError(f"the int8 tower ran {len(projections)} "
+                                 f"int8 projections; expected {want_n}")
+        res.update({
+            "int8_projections_held": len(projections),
+            "int8_projection_max_abs_diff": max(projections),
+            "int8_projection_tol_of_max": INT8_LINEAR_TOL,
+            "card_int8_vs_cpu_int8_max_abs_diff":
+                (card_q - cpu_q).abs().max().item(),
+            "cpu_int8_vs_float_max_abs_diff":
+                (cpu_q - want).abs().max().item()})
+    return res
 
 
 def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
@@ -921,13 +1163,33 @@ def k2_on_path_inputs(rec: _Recorder, argv) -> dict:
             lambda: softdtw_cuda.softdtw_dp_cuda(uniform, gamma, bw))}
 
 
+@contextlib.contextmanager
+def _counted_tower_calls():
+    """Counts the ViT tower's calls (a list holding the count)."""
+    from clipspm_tpu_torch.models.backbones import clip
+
+    forward, calls = clip.VisionTransformer.forward, [0]
+
+    def counted(tower, x):
+        calls[0] += 1
+        return forward(tower, x)
+
+    clip.VisionTransformer.forward = counted
+    try:
+        yield calls
+    finally:
+        clip.VisionTransformer.forward = forward
+
+
 def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
-                    episodes: int = MAIN_EPISODES) -> dict:
+                    episodes: int = None) -> dict:
     import gc
 
     from clipspm_tpu_torch.cli.run import main as cli_main
+    from clipspm_tpu_torch.ops import quant
 
     spec = PATHS[name]
+    episodes = episodes or spec.get("episodes", MAIN_EPISODES)
     log(f"main path {name}: frames come from a seeded uint8 source right "
         "after the decode stage, in place of the JPEG decode; the disk decode "
         "(native/frame_decoder.cc, which needs libjpeg, or PIL) is held "
@@ -955,21 +1217,34 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
                 torch._C._cuda_clearCublasWorkspaces()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        with rec.installed():
+        with rec.installed(), _counted_tower_calls() as tower_calls:
             _zero_counters(counters)
+            quant.launches = 0
             t0 = time.perf_counter()
             res = cli_main(argv)
             wall = time.perf_counter() - t0
             launches = _read_counters(counters)
+            int8_gemms = quant.launches
         peak = torch.cuda.max_memory_allocated() if on_gpu else 0
         head_err = check_head_against_cpu(rec, argv, spec["metrics"])
-        tower_err = (check_tower_against_cpu(rec)
-                     if spec.get("tower_check") else None)
+        tower_err = None
+        if spec.get("tower_check"):
+            tower_err = check_tower_against_cpu(rec, bool(spec.get("int8")))
         head_profile = profile_head(rec, argv) if on_gpu else None
         if on_gpu and name == "ta2n":
             head_profile["k2_data_dependence"] = k2_on_path_inputs(rec, argv)
 
     V = res["unique_videos"]
+    if spec.get("int8") and on_gpu:
+        # every block of every tower call: its four projections through the
+        # int8 GEMM, and so none through a float product
+        want_gemms = 4 * rec.learner.model.arch.vision_layers * tower_calls[0]
+        if not tower_calls[0] or int8_gemms != want_gemms:
+            raise AssertionError(f"{name}: {int8_gemms} int8 GEMMs over "
+                                 f"{tower_calls[0]} tower calls; expected "
+                                 f"{want_gemms}")
+    elif int8_gemms:
+        raise AssertionError(f"{name} ran {int8_gemms} int8 GEMMs")
     for k, per_episode in spec["launches"].items():
         expect = per_episode * episodes if on_gpu else 0
         if launches[k] != expect:
@@ -999,6 +1274,9 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
            "peak_memory_bytes": peak,
            "head_vs_cpu_max_abs_logit_diff": head_err,
            "head_vs_cpu_tol": HEAD_TOL}
+    if spec.get("int8"):
+        out["int8_gemms"] = int8_gemms
+        out["tower_calls"] = tower_calls[0]
     if tower_err is not None:
         out["tower_vs_cpu"] = tower_err
     log(json.dumps({"main_path": out}))
@@ -1320,12 +1598,20 @@ TRAIN_PATHS = {
         launches={"K1": 1, "K2": 0}, check=None),
     "molo-train": dict(
         eval_path="molo", train_classes=70, train_videos=5,
-        launches={"K1": 0, "K2": 0}, check=None, grad_factor=10.0),
+        launches={"K1": 0, "K2": 0}, check=None, grad_factor=10.0,
+        fp64_on_card=True),
 }
+# (cut from 40 train episodes, a validation and a checkpoint at 32 and 100
+# validation and ONLY_TEST episodes, to make room for the tower's switches
+# and the remat policies: still one full step and one masked partial step
+# where TASKS_PER_BATCH is 16)
 TRAIN_EPISODES, VAL_FREQ, SAVE_FREQ, VAL_EPISODES, PRINT_FREQ = \
-    40, 32, 32, 100, 16
+    24, 16, 16, 50, 8
 # the profiled optimizer step's episodes (per-episode figures)
 PROFILE_EPISODES = 2
+# the remat policies each timed over the profiled step's episodes on a
+# remat-chunked tower (clipspm-vit-train), the JAX package's five
+REMAT_POLICIES = ("attn_out", "full", "attn", "mlp", "dots")
 # The train step on the card against the CPU: ``check``'s episodes at full
 # width and 224, TF32 off, cuDNN's deterministic algorithms, dropout off,
 # center crops, from one set of weights, three times: fp32 on the card,
@@ -1370,6 +1656,11 @@ TRAIN_CHECK_TOL = 1e-4
 # convolutions, whose own fp32 error (above) the factor now need not
 # carry.
 HEAD_GRAD_TOL, HEAD_GRAD_FACTOR = 1e-4, 2.0
+# molo (no kernel) also runs its head in fp64 on the card: each gradient
+# equal to the CPU's fp64 one within this (relative L2 per tensor). fp64
+# rounding, amplified by the cancelling sums above, stays far below it; a
+# different gradient path would be off by O(1).
+CARD_FP64_TOL = 1e-8
 
 
 class _TrainRecorder(_Recorder):
@@ -1458,7 +1749,8 @@ def profile_train_step(learner, cfg) -> dict:
     trained): the shared summary (per episode), and each kernel's backward,
     the plain version's replay (a profiler range around each backward
     call). For a remat-chunked tower, also one unprofiled step of the same
-    episodes under each remat policy the port honours."""
+    episodes under each remat policy (``REMAT_POLICIES``): its seconds an
+    episode and its peak device memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1494,16 +1786,21 @@ def profile_train_step(learner, cfg) -> dict:
     out, busy_us = _summarize(prof, wall_us, tpb, top=8)
     model = learner.model
     if getattr(model, "train_encode_chunk", 0):
-        policy, seconds = model.train_remat_policy, {}
-        for p in ("attn_out", "full", "dots"):
+        policy, seconds, peaks = model.train_remat_policy, {}, {}
+        for p in REMAT_POLICIES:
             model.train_remat_policy = p
-            torch.cuda.synchronize()
+            _fresh_peak()
             t0 = time.perf_counter()
             learner._step(batch, tpb)
             torch.cuda.synchronize()
             seconds[p] = (time.perf_counter() - t0) / tpb
+            peaks[p] = torch.cuda.max_memory_allocated()
         model.train_remat_policy = policy
         out["remat_policy_step_seconds_per_episode"] = seconds
+        out["remat_policy_train_episodes_per_s"] = {
+            p: 1.0 / t for p, t in seconds.items()}
+        out["remat_policy_peak_memory_bytes"] = peaks
+        out["card"] = CARD
     for k, name in REPLAYS.items():
         replays = [e for e in prof.events() if e.name == name
                    and e.device_type == DeviceType.CPU]
@@ -1670,7 +1967,8 @@ def check_train_step_against_cpu(cfg_path: str, opts, check: dict) -> dict:
 
 
 def check_head_grads_against_cpu(learner, cfg,
-                                 factor: float = HEAD_GRAD_FACTOR) -> dict:
+                                 factor: float = HEAD_GRAD_FACTOR,
+                                 fp64_on_card: bool = False) -> dict:
     """The trained head's parameter and input gradients on the card (fp32,
     TF32 off) and on a CPU copy (fp32) against the CPU copy's in fp64, over
     one train
@@ -1678,7 +1976,10 @@ def check_head_grads_against_cpu(learner, cfg,
     has no cacheable features, the trunk's maps and the clips), train mode
     with dropout's modules in eval mode, the dispatch's train loss; a tensor
     whose gradient is 0 in fp64 (a stream weighted 0, a branch no loss
-    reads) must be 0 on the card too."""
+    reads) must be 0 on the card too. With ``fp64_on_card`` (a head with no
+    fp32 kernel) the card also runs in fp64, and each of its gradients must
+    equal the CPU's fp64 one within CARD_FP64_TOL: the same function on
+    both devices, whatever fp32 rounding does to a cancelling sum."""
     import copy
 
     import numpy as np
@@ -1720,7 +2021,9 @@ def check_head_grads_against_cpu(learner, cfg,
                 ("card", gpu, learner.device, torch.float32),
                 ("cpu", cpu_model, cpu, torch.float32),
                 ("fp64", copy.deepcopy(cpu_model).double(), cpu,
-                 torch.float64)):
+                 torch.float64),
+                *([("card fp64", copy.deepcopy(gpu).double(), learner.device,
+                    torch.float64)] if fp64_on_card else [])):
             model.train()
             for m in model.modules():
                 if isinstance(m, torch.nn.Dropout):
@@ -1776,6 +2079,11 @@ def check_head_grads_against_cpu(learner, cfg,
         rows.append((err, cpu_err, rel(card[k], cpu[k]), k))
         if not err <= max(factor * cpu_err, HEAD_GRAD_TOL):
             bad.append(f"{k} {err:.3e} (CPU fp32 {cpu_err:.3e})")
+    fp64_errs = sorted(((rel(grads["card fp64"][k], ref[k]), k)
+                        for k in ref if ref[k].any()), reverse=True) \
+        if fp64_on_card else []
+    bad += [f"{k}: card fp64 {e:.3e} from the CPU's" for e, k in fp64_errs
+            if not e <= CARD_FP64_TOL]
     rows.sort(reverse=True)
     out = {"frames": int(cfg.TRAIN.WAY) * int(cfg.DATA.SEQ_LEN) * (
                int(cfg.TRAIN.SHOT) + int(cfg.TRAIN.QUERY_PER_CLASS)),
@@ -1785,6 +2093,10 @@ def check_head_grads_against_cpu(learner, cfg,
            "grad_rel_l2_card_vs_cpu_max": max(
                (cc for _, _, cc, _ in rows), default=0.0),
            "loss": losses, "factor": factor, "floor": HEAD_GRAD_TOL}
+    if fp64_on_card:
+        out["card_fp64_vs_cpu_fp64_worst"] = [[k, e] for e, k in
+                                              fp64_errs[:4]]
+        out["card_fp64_tol"] = CARD_FP64_TOL
     log(json.dumps({"head_grads_vs_cpu": out}))
     if bad:
         raise AssertionError("head gradients on the card vs the CPU: "
@@ -1876,7 +2188,8 @@ def phase_train_path(name: str) -> dict:
         if run["check"] is None:
             t0 = time.perf_counter()
             check = check_head_grads_against_cpu(
-                learner, cfg, run.get("grad_factor", HEAD_GRAD_FACTOR))
+                learner, cfg, run.get("grad_factor", HEAD_GRAD_FACTOR),
+                fp64_on_card=run.get("fp64_on_card", False))
             stage_seconds["check"] = time.perf_counter() - t0
         del learner, rec
 
@@ -1934,6 +2247,209 @@ def phase_train_path(name: str) -> dict:
     return out
 
 
+# The remat policies that keep more than the attention output, each a train
+# path of its own: clipspm-vit-train's config (hmdb.yaml, ViT-B/16, bf16,
+# remat chunks of 40 frames, 16 episodes an Adam step; 3 K1 launches an
+# episode, K1's backward the plain replay) with MODEL.TRAIN_REMAT_POLICY set
+# ("attn": the attention spelled out, its probabilities and output kept;
+# "mlp": the attention output and the gelu output kept), REMAT_EPISODES of
+# training through the port's CLI with no validation; then one small fp32
+# step (TF32 off; one 5-way 1-shot 1-query episode, 80 frames, the model's
+# own loss) on the card under the policy, whose loss and gradients must
+# equal "full"'s on the card within REMAT_GRAD_TOL: a policy changes what
+# is kept, not the arithmetic. The same step at bf16 (autocast, as the path
+# trains): the policy's gradients within BF16_GRAD_TOL of those of "full"
+# run with the policy's tagged operators (the same arithmetic: under
+# "attn" the attention spelled out, not the fused SDPA kernel), over the
+# whole gradient's Frobenius norm (four bf16 ulps at unit scale, as
+# tests/test_torch_vit_switches.py holds them against the JAX package's);
+# each one's distance from the fp32 gradients, and that of plain "full" at
+# bf16, reported. Their rates beside the other policies': clipspm-vit-
+# train's train profile.
+REMAT_PATHS = {"clipspm-vit-train-attn": "attn",
+               "clipspm-vit-train-mlp": "mlp"}
+REMAT_EPISODES = 16
+REMAT_GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
+BF16_GRAD_TOL = 4 * 2.0 ** -8
+
+
+def _rel_diff(got: dict, want: dict) -> float:
+    """``|got - want| / |want|`` over all the gradients (Frobenius)."""
+    num = sum(float(((got[k].float() - want[k]) ** 2).sum()) for k in want)
+    return (num / sum(float((w ** 2).sum()) for w in want.values())) ** 0.5
+
+
+@contextlib.contextmanager
+def _full_with_tags(names):
+    """The "full" policy (nothing kept, everything recomputed) running the
+    tagged operators of ``names``: the tags entered in each chunk's forward
+    and in its recompute, which the backward runs in its own thread on the
+    card."""
+    from clipspm_tpu_torch.models import visual
+
+    remat_context = visual._remat_context
+
+    def context_fn():
+        return (visual._tagged(names, contextlib.nullcontext()),
+                visual._tagged(names, contextlib.nullcontext()))
+
+    visual._remat_context = (lambda policy: context_fn if policy == "full"
+                             else remat_context(policy))
+    try:
+        yield
+    finally:
+        visual._remat_context = remat_context
+
+
+def check_policy_grads(policy: str, cfg_path: str, opts) -> dict:
+    """One step's loss and gradients on the card under ``policy`` against
+    ``full``'s, from the same weights and episode: at fp32, and at bf16."""
+    from clipspm_tpu_torch.models.fsar import build_model
+    from clipspm_tpu_torch.models.visual import _TAGS_BY_POLICY
+    from clipspm_tpu_torch.train.losses import loss_and_acc
+    from clipspm_tpu_torch.utils.config import load_config
+    from clipspm_tpu_torch.weights import random_init_
+
+    cfg = load_config(cfg_path, opts=[*opts, "USE_AMP=false", "TRAIN.SHOT=1",
+                                      "TRAIN.QUERY_PER_CLASS=1"])
+    way, T = int(cfg.TRAIN.WAY), int(cfg.DATA.SEQ_LEN)
+    R, C = int(cfg.DATA.IMG_SIZE), len(cfg.TRAIN.CLASS_NAME)
+    dev = torch.device("cuda")
+    model = random_init_(build_model(cfg), torch.Generator().manual_seed(4))
+    model = model.to(dev).train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.eval()
+    gen = torch.Generator().manual_seed(6)
+    sup, qry = (torch.rand(way, T, R, R, 3, generator=gen).to(dev)
+                for _ in range(2))
+    labels = torch.arange(way, device=dev)
+    classes = torch.randperm(C, generator=gen)[:way].to(dev)
+    text = torch.randn(C, model.arch.embed_dim, generator=gen).to(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, grads, seconds = {}, {}, {}
+    try:
+        for key, dtype, p, names in (
+                ("full", None, "full", ()), (policy, None, policy, ()),
+                ("full bf16", torch.bfloat16, "full", ()),
+                ("full bf16 tagged", torch.bfloat16, "full",
+                 _TAGS_BY_POLICY[policy]),
+                (f"{policy} bf16", torch.bfloat16, policy, ())):
+            model.train_remat_policy, model.compute_dtype = p, dtype
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _full_with_tags(names):
+                out = model(sup, qry, labels, classes, classes, text, text)
+                loss, _ = loss_and_acc("clipspm", out, labels, classes,
+                                       classes, 1, cfg=cfg, train=True)
+                loss.backward()
+            torch.cuda.synchronize()
+            seconds[key] = time.perf_counter() - t0
+            losses[key] = loss.item()
+            grads[key] = {k: v.grad.detach().clone()
+                          for k, v in model.named_parameters()
+                          if v.grad is not None}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    bf16_diff = _rel_diff(grads[f"{policy} bf16"], grads["full bf16 tagged"])
+    bf16_vs_fp32 = {k: _rel_diff(grads[k], grads["full"]) for k in (
+        "full bf16", "full bf16 tagged", f"{policy} bf16")}
+    got, want = grads[policy], grads["full"]
+    worst, bad = 0.0, []
+    if set(got) != set(want):
+        bad.append(f"gradients of {sorted(set(got) ^ set(want))[:4]}")
+    for k in set(got) & set(want):
+        worst = max(worst, (got[k] - want[k]).abs().max().item())
+        if not torch.allclose(got[k], want[k], **REMAT_GRAD_TOL):
+            bad.append(k)
+    loss_rel = abs(losses[policy] - losses["full"]) / abs(losses["full"])
+    if loss_rel > 2e-5:
+        bad.append(f"loss {losses[policy]} against {losses['full']}")
+    if not bf16_diff <= BF16_GRAD_TOL:
+        bad.append(f"bf16 gradients {bf16_diff:.3e} from full's")
+    out = {"policy": policy, "frames": 2 * way * T, "grad_tensors": len(got),
+           "max_abs_grad_diff_vs_full": worst, "loss_rel_vs_full": loss_rel,
+           "tol": REMAT_GRAD_TOL,
+           "bf16_grad_rel_diff_vs_full_bf16_tagged": bf16_diff,
+           "bf16_tol": BF16_GRAD_TOL,
+           "bf16_grad_rel_diff_vs_fp32_full": bf16_vs_fp32,
+           "step_seconds": seconds}
+    if bad:
+        raise AssertionError(f"remat policy {policy!r} on the card vs "
+                             f"'full': {'; '.join(bad[:6])}")
+    return out
+
+
+def phase_remat_path(name: str) -> dict:
+    from clipspm_tpu_torch.cli.run import main as cli_main
+
+    policy = REMAT_PATHS[name]
+    run = TRAIN_PATHS["clipspm-vit-train"]
+    spec = PATHS[run["eval_path"]]
+    counters = _counters()
+    with tempfile.TemporaryDirectory() as root:
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    run["train_classes"], run["train_videos"], SPLIT_FRAMES,
+                    SPLIT_PX, mode="train")
+        ckpt = os.path.join(root, "ckpt")
+        argv = ["--cfg", spec["cfg"], "--splits-root", root,
+                "--allow-random-weights", *spec["opts"],
+                f"MODEL.TRAIN_REMAT_POLICY={policy}", f"DATA.DATA_DIR={root}",
+                f"CHECKPOINT.CHECKPOINT_DIR={ckpt}", "TEST.ONLY_TEST=false",
+                f"TRAIN.TRAIN_EPISODES={REMAT_EPISODES}", "TRAIN.VAL_FREQ=0",
+                "CHECKPOINT.SAVE_FREQ=0", f"TRAIN.PRINT_FREQ={REMAT_EPISODES}"]
+        rec = _TrainRecorder()
+        _fresh_peak()
+        with rec.installed():
+            _zero_counters(counters)
+            t0 = time.perf_counter()
+            res = cli_main(argv)
+            wall = time.perf_counter() - t0
+            launches = _read_counters(counters)
+        peak = torch.cuda.max_memory_allocated()
+        model = rec.learner.model
+        losses = [r["value"] for r in _read_jsonl(
+            os.path.join(ckpt, "metrics.jsonl"))
+            if r["tag"] == "loss/Train_loss[it]"]
+        steps = [(n, a.elapsed_time(b) / 1e3) for n, a, b in rec.steps]
+        tpb = rec.learner.tasks_per_batch
+        want_launches = {k: n * REMAT_EPISODES
+                         for k, n in run["launches"].items()}
+        chunking = (model.train_remat_policy, model.train_encode_chunk)
+        if chunking != (policy, 40):
+            raise AssertionError(f"{name}: the model trains under "
+                                 f"{model.train_remat_policy!r} in chunks of "
+                                 f"{model.train_encode_chunk}")
+        if [n for n, _ in steps] != [tpb] * (REMAT_EPISODES // tpb) \
+                or len(losses) != len(steps) \
+                or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: steps {steps}, losses {losses}")
+        if launches != want_launches or rec.val_launches:
+            raise AssertionError(f"{name}: launches {launches} (validations "
+                                 f"{rec.val_launches}); expected "
+                                 f"{want_launches} and no validation")
+        build_seconds = rec.learner.build_seconds
+        del rec, model
+    t0 = time.perf_counter()
+    grads = check_policy_grads(policy, spec["cfg"], spec["opts"])
+    out = {"path": name, "policy": policy, "card": CARD,
+           "episodes": res["episodes"],
+           "step_losses": losses, "step_episodes": [n for n, _ in steps],
+           "step_device_seconds": [s for _, s in steps],
+           "train_episodes_per_s_step_1": sum(n for n, _ in steps)
+           / sum(t for _, t in steps),
+           "peak_memory_bytes": peak, "cli_seconds": wall,
+           "build_seconds": build_seconds, "launches": launches,
+           "grads_vs_full": grads,
+           "check_seconds": time.perf_counter() - t0}
+    log(json.dumps({"remat_path": out}))
+    return out
+
+
 def main() -> int:
     seconds = {}
 
@@ -1948,6 +2464,7 @@ def main() -> int:
     timed("build", phase_build)
     k1 = timed("K1", phase_k1)
     k2 = timed("K2", phase_k2)
+    timed("quant", phase_quant)
     evals = {name: timed(name, phase_main_path, name)
              for name in CACHED_PATHS}
     evals.update({name: timed(name, phase_uncached_path, name)
@@ -1955,13 +2472,17 @@ def main() -> int:
     timed("uncached=cached", phase_uncached_equals_cached)
     trains = {name: timed(name, phase_train_path, name)
               for name in TRAIN_PATHS}
+    remats = {name: timed(name, phase_remat_path, name)
+              for name in REMAT_PATHS}
     log(json.dumps({"phase_seconds": seconds}))
     for k, entry in (("K1", k1), ("K2", k2)):
         entry["launches_by_path"] = {
             **{name: r["launches"][k] for name, r in evals.items()},
             **{f"{name} ({stage})": r["launches"][f"{k}_{stage}"]
                for name, r in trains.items()
-               for stage in ("train", "val", "only_test")}}
+               for stage in ("train", "val", "only_test")},
+            **{f"{name} (train)": r["launches"][k]
+               for name, r in remats.items()}}
     k1["launches"] = evals["clipspm"]["launches"]["K1"]
     k2["launches"] = evals["ta2n"]["launches"]["K2"]
     log(json.dumps({"kernels": [k1, k2]}))

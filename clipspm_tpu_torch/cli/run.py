@@ -19,10 +19,12 @@ uncached at ``TEST.EVAL_BATCH`` episodes a step; a model the cache cannot
 serve (soap and molo, which need each episode's pixels) falls back to the
 uncached evaluator with a warning line. It builds all ten heads of
 ``configs/``: clipspm, clipfsar, sten and cpm2c (RN50 and ViT towers), and
-ta2n, otam, trx, strm, soap and molo (torchvision ResNet trunk). What the
-port does not carry yet (several GPUs, the remat policies ``attn`` and
-``mlp``, the opt-in extras) raises ``NotImplementedError`` naming its
-ROADMAP item before anything is built.
+ta2n, otam, trx, strm, soap and molo (torchvision ResNet trunk), with the
+CLIP towers' switches ``MODEL.FAST_SOFTMAX``, ``MODEL.BF16_NORMS`` and
+``MODEL.INT8_EVAL`` and every ``MODEL.TRAIN_REMAT_POLICY`` of the JAX
+package. What the port does not carry yet (several GPUs) raises
+``NotImplementedError`` naming its ROADMAP item, and what the JAX package
+refuses raises its ``ValueError``, before anything is built.
 """
 
 from __future__ import annotations

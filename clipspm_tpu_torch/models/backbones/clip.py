@@ -7,16 +7,20 @@ carry OpenAI's state-dict key names (``visual.layer1.0.conv1.weight``,
 loads straight into them. Frames are NHWC ``[N, H, W, 3]`` at the public
 functions and NCHW only inside the tower (the permuted view keeps NHWC
 strides, which cuDNN runs as channels-last). LayerNorm and BatchNorm compute
-in fp32 whatever the compute dtype. The vision transformer's attention is one
-``scaled_dot_product_attention`` call (on the card a fused flash or
-memory-efficient kernel; the JAX package has no attention kernel, XLA fuses
-its einsums); the text tower's causal attention is spelled out as in the
-JAX package.
+in fp32 whatever the compute dtype, or in it with ``bf16_norms``. The vision
+transformer's attention is one ``scaled_dot_product_attention`` call (on the
+card a fused flash or memory-efficient kernel; the JAX package has no
+attention kernel, XLA fuses its einsums), spelled out as in the JAX package
+where a switch needs its probabilities (``fast_softmax``, the ``attn`` remat
+policy: ``ops/tags.py``); the text tower's causal attention is spelled out.
+The vision tower's switches (``CLIPArch``) are the JAX package's; the text
+tower takes none, as there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import OrderedDict
 from typing import Optional, Tuple, Union
 
@@ -24,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import tags
+from ...ops.quant import int8_linear
 from ...utils.precision import fp32_or_wider
 
 
@@ -40,6 +46,14 @@ class CLIPArch:
     transformer_width: int = 512
     transformer_heads: int = 8
     transformer_layers: int = 12
+    # the vision tower's switches (MODEL.FAST_SOFTMAX, MODEL.BF16_NORMS,
+    # MODEL.INT8_EVAL): the max-shifted softmax in the compute dtype; the
+    # norms in the compute dtype; the ViT blocks' four projections in
+    # dynamic int8 outside training (ops/quant.py). Parameters and their
+    # names are the same either way.
+    fast_softmax: bool = False
+    bf16_norms: bool = False
+    int8_eval: bool = False
 
     @property
     def is_vit(self) -> bool:
@@ -82,15 +96,29 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class FP32LayerNorm(nn.LayerNorm):
-    """LayerNorm computed in fp32 and cast back to the input dtype."""
+    """LayerNorm computed in fp32 and cast back to the input dtype; with
+    ``fp32=False`` (``MODEL.BF16_NORMS``) computed in the input dtype, the
+    fp32 parameters cast to it at use and autocast off (torch's bf16
+    LayerNorm sums its statistics in fp32, as flax's does)."""
+
+    def __init__(self, *args, fp32: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.fp32 = fp32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(fp32_or_wider(x)).to(x.dtype)
+        if self.fp32:
+            return super().forward(fp32_or_wider(x)).to(x.dtype)
+        with torch.autocast(x.device.type, enabled=False):
+            return F.layer_norm(x, self.normalized_shape,
+                                self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), self.eps)
 
 
 class FP32BatchNorm:
     """BatchNorm computed in fp32 (its output stays fp32; fp64 stays fp64),
-    mixed into ``nn.BatchNorm2d`` and ``nn.BatchNorm3d``.
+    mixed into ``nn.BatchNorm2d`` and ``nn.BatchNorm3d``. With ``fp32=False``
+    (``MODEL.BF16_NORMS``) the input keeps its dtype and so does the output,
+    the statistics and parameters fp32 (flax's ``BatchNorm(dtype=bf16)``).
 
     In train mode the running variance takes the *biased* batch variance,
     as flax's ``nn.BatchNorm`` does (momentum 0.9 there is 0.1 here), over
@@ -100,8 +128,13 @@ class FP32BatchNorm:
     backward keeps), and the buffer takes the corrected value: the batch
     statistics stay one fused pass."""
 
+    def __init__(self, *args, fp32: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.fp32 = fp32
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = fp32_or_wider(x)
+        if self.fp32:
+            x = fp32_or_wider(x)
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self.num_batches_tracked.add_(1)
@@ -135,22 +168,24 @@ class Bottleneck(nn.Module):
     identity path."""
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 fp32_norms: bool = True):
         super().__init__()
         out_ch = planes * self.expansion
+        bn = functools.partial(FP32BatchNorm2d, fp32=fp32_norms)
         self.conv1 = _conv(inplanes, planes, 1)
-        self.bn1 = FP32BatchNorm2d(planes)
+        self.bn1 = bn(planes)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = FP32BatchNorm2d(planes)
+        self.bn2 = bn(planes)
         self.avgpool = nn.AvgPool2d(stride) if stride > 1 else nn.Identity()
         self.conv3 = _conv(planes, out_ch, 1)
-        self.bn3 = FP32BatchNorm2d(out_ch)
+        self.bn3 = bn(out_ch)
         self.downsample = None
         if stride > 1 or inplanes != out_ch:
             self.downsample = nn.Sequential(OrderedDict([
                 ("-1", nn.AvgPool2d(stride) if stride > 1 else nn.Identity()),
                 ("0", _conv(inplanes, out_ch, 1)),
-                ("1", FP32BatchNorm2d(out_ch))]))
+                ("1", bn(out_ch))]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.bn1(self.conv1(x)))
@@ -198,22 +233,25 @@ class ModifiedResNet(nn.Module):
     """3-conv stem + avgpool + 4 stages + attention pooling."""
 
     def __init__(self, layers: Tuple[int, int, int, int], output_dim: int,
-                 heads: int, input_resolution: int = 224, width: int = 64):
+                 heads: int, input_resolution: int = 224, width: int = 64,
+                 fp32_norms: bool = True):
         super().__init__()
         w = width
+        bn = functools.partial(FP32BatchNorm2d, fp32=fp32_norms)
         self.conv1 = _conv(3, w // 2, 3, stride=2)
-        self.bn1 = FP32BatchNorm2d(w // 2)
+        self.bn1 = bn(w // 2)
         self.conv2 = _conv(w // 2, w // 2, 3)
-        self.bn2 = FP32BatchNorm2d(w // 2)
+        self.bn2 = bn(w // 2)
         self.conv3 = _conv(w // 2, w, 3)
-        self.bn3 = FP32BatchNorm2d(w)
+        self.bn3 = bn(w)
         self.avgpool = nn.AvgPool2d(2)
         inplanes = w
         for stage, (blocks, planes, stride) in enumerate(zip(
                 layers, (w, w * 2, w * 4, w * 8), (1, 2, 2, 2))):
             mods = []
             for b in range(blocks):
-                mods.append(Bottleneck(inplanes, planes, stride if b == 0 else 1))
+                mods.append(Bottleneck(inplanes, planes,
+                                       stride if b == 0 else 1, fp32_norms))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*mods))
         self.attnpool = AttentionPool2d(input_resolution // 32, w * 32, heads,
@@ -232,24 +270,39 @@ class ModifiedResNet(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Text transformer
+# Transformer (the ViT tower's and the text tower's)
 # ---------------------------------------------------------------------------
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           int8: bool) -> torch.Tensor:
+    return int8_linear(x, weight, bias) if int8 else F.linear(x, weight, bias)
+
 
 class _Attention(nn.Module):
     """Fused-in-projection multi-head self-attention with
-    ``nn.MultiheadAttention``'s parameter names."""
+    ``nn.MultiheadAttention``'s parameter names.
 
-    def __init__(self, d_model: int, n_head: int, causal: bool):
+    The vision attention is one ``scaled_dot_product_attention`` call,
+    whose output is the ``attn_out`` tensor the remat policies name. It is
+    spelled out as the JAX block computes it where a switch needs its
+    probabilities (``fast_softmax``, or the ``attn_probs`` tag of the
+    ``attn`` remat policy): fp32 scores times ``hd**-0.5``, the
+    probabilities (``tags.attn_probs``, cast to v's dtype), then
+    ``tags.attn_out``, ``probs @ v``."""
+
+    def __init__(self, d_model: int, n_head: int, causal: bool,
+                 fast_softmax: bool = False):
         super().__init__()
         self.n_head, self.causal = n_head, causal
+        self.fast_softmax = fast_softmax
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         B, L, D = x.shape
         hd = D // self.n_head
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = _dense(x, self.in_proj_weight, self.in_proj_bias, int8)
         q, k, v = (t.reshape(B, L, self.n_head, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         if self.causal:
@@ -259,42 +312,52 @@ class _Attention(nn.Module):
             attn = attn.masked_fill(~mask, float("-inf"))
             attn = torch.softmax(attn, dim=-1).to(v.dtype)
             out = torch.matmul(attn, v)
+        elif self.fast_softmax or "attn_probs" in tags.active():
+            with torch.autocast(x.device.type, enabled=False):
+                scores = torch.matmul(
+                    fp32_or_wider(q), fp32_or_wider(k).transpose(-1, -2)) \
+                    * hd ** -0.5
+                probs = tags.attn_probs(scores, self.fast_softmax, v.dtype)
+                out = tags.attn_out(probs, v)
         else:
-            # the tensor the ``attn_out`` remat policy keeps
-            # (models/visual.py), as the JAX package tags it
             out = F.scaled_dot_product_attention(q, k, v)
-        return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
-
-
-class QuickGELU(nn.Module):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return quick_gelu(x)
+        return _dense(out.transpose(1, 2).reshape(B, L, D),
+                      self.out_proj.weight, self.out_proj.bias, int8)
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN attention + QuickGELU MLP."""
+    """Pre-LN attention + QuickGELU MLP. ``int8_eval``: the four
+    projections in dynamic int8 outside training (``ops/quant.py``; the
+    same parameters). The gelu is ``tags.mlp_gelu`` where the ``mlp`` remat
+    policy names its output."""
 
-    def __init__(self, d_model: int, n_head: int, causal: bool = False):
+    def __init__(self, d_model: int, n_head: int, causal: bool = False,
+                 fast_softmax: bool = False, fp32_norms: bool = True,
+                 int8_eval: bool = False):
         super().__init__()
-        self.ln_1 = FP32LayerNorm(d_model, eps=1e-5)
-        self.attn = _Attention(d_model, n_head, causal)
-        self.ln_2 = FP32LayerNorm(d_model, eps=1e-5)
-        self.mlp = nn.Sequential(OrderedDict([
-            ("c_fc", nn.Linear(d_model, 4 * d_model)),
-            ("gelu", QuickGELU()),
-            ("c_proj", nn.Linear(4 * d_model, d_model))]))
+        self.int8_eval = int8_eval
+        self.ln_1 = FP32LayerNorm(d_model, eps=1e-5, fp32=fp32_norms)
+        self.attn = _Attention(d_model, n_head, causal, fast_softmax)
+        self.ln_2 = FP32LayerNorm(d_model, eps=1e-5, fp32=fp32_norms)
+        self.mlp = nn.ModuleDict({"c_fc": nn.Linear(d_model, 4 * d_model),
+                                  "c_proj": nn.Linear(4 * d_model, d_model)})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        int8 = self.int8_eval and not self.training
+        x = x + self.attn(self.ln_1(x), int8)
+        c_fc, c_proj = self.mlp.c_fc, self.mlp.c_proj
+        h = _dense(self.ln_2(x), c_fc.weight, c_fc.bias, int8)
+        h = tags.mlp_gelu(h) if "mlp_gelu" in tags.active() else quick_gelu(h)
+        return x + _dense(h, c_proj.weight, c_proj.bias, int8)
 
 
 class TransformerStack(nn.Module):
     def __init__(self, width: int, layers: int, heads: int,
-                 causal: bool = False):
+                 causal: bool = False, **switches):
         super().__init__()
         self.resblocks = nn.Sequential(*[
-            ResidualAttentionBlock(width, heads, causal) for _ in range(layers)])
+            ResidualAttentionBlock(width, heads, causal, **switches)
+            for _ in range(layers)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.resblocks(x)
@@ -303,10 +366,14 @@ class TransformerStack(nn.Module):
 class VisionTransformer(nn.Module):
     """Patch conv (no bias, stride = patch) -> class token first, then the
     positional embedding -> ``ln_pre`` -> pre-LN transformer -> ``ln_post``
-    on token 0 -> ``@ proj`` (no bias)."""
+    on token 0 -> ``@ proj`` (no bias). ``fast_softmax``, ``fp32_norms`` and
+    ``int8_eval``: ``ResidualAttentionBlock``'s switches (the norms
+    ``ln_pre`` and ``ln_post`` too)."""
 
     def __init__(self, input_resolution: int, patch_size: int, width: int,
-                 layers: int, heads: int, output_dim: int):
+                 layers: int, heads: int, output_dim: int,
+                 fast_softmax: bool = False, fp32_norms: bool = True,
+                 int8_eval: bool = False):
         super().__init__()
         grid = input_resolution // patch_size
         self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size,
@@ -314,9 +381,11 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.zeros(width))
         self.positional_embedding = nn.Parameter(
             torch.zeros(grid * grid + 1, width))
-        self.ln_pre = FP32LayerNorm(width, eps=1e-5)
-        self.transformer = TransformerStack(width, layers, heads)
-        self.ln_post = FP32LayerNorm(width, eps=1e-5)
+        self.ln_pre = FP32LayerNorm(width, eps=1e-5, fp32=fp32_norms)
+        self.transformer = TransformerStack(
+            width, layers, heads, fast_softmax=fast_softmax,
+            fp32_norms=fp32_norms, int8_eval=int8_eval)
+        self.ln_post = FP32LayerNorm(width, eps=1e-5, fp32=fp32_norms)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -337,16 +406,20 @@ class VisionTransformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 def make_clip_visual(arch: CLIPArch) -> nn.Module:
+    """The visual tower of ``arch`` with its switches (``INT8_EVAL`` covers
+    the ViT blocks only: ``models/fsar.py`` refuses it on a ResNet)."""
     if arch.is_vit:
         return VisionTransformer(
             input_resolution=arch.image_resolution,
             patch_size=arch.vision_patch_size, width=arch.vision_width,
             layers=arch.vision_layers, heads=arch.vision_heads,
-            output_dim=arch.embed_dim)
+            output_dim=arch.embed_dim, fast_softmax=arch.fast_softmax,
+            fp32_norms=not arch.bf16_norms, int8_eval=arch.int8_eval)
     return ModifiedResNet(layers=arch.vision_layers, output_dim=arch.embed_dim,
                           heads=arch.vision_heads,
                           input_resolution=arch.image_resolution,
-                          width=arch.vision_width)
+                          width=arch.vision_width,
+                          fp32_norms=not arch.bf16_norms)
 
 
 class CLIPModel(nn.Module):

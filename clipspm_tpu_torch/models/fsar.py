@@ -3,16 +3,20 @@
 Port of ``clipspm_tpu/models/fsar.py``. The backbone encodes the support and
 query frames; the head consumes per-frame features; text tables are inputs
 gathered per episode. Under ``USE_AMP`` the forward runs under bf16 autocast
-(convolutions and matmuls in bf16; norms in fp32; the OTAM and soft-DTW DPs
-in fp32). ``build_model`` builds all ten heads of ``configs/``: ``clipspm``
-(``CLIPSPMModel`` below), ``clipfsar``, ``sten`` and ``cpm2c``
-(``heads/{clipfsar,sten,cpm2c}.py``, on ``visual.py:CLIPVideoModel``), and
-on the torchvision ResNet trunk ``ta2n``, ``otam``, ``trx``, ``strm``,
-``soap`` and ``molo`` (``heads/<name>.py``).
+(convolutions and matmuls in bf16; norms in fp32 unless
+``MODEL.BF16_NORMS``; the OTAM and soft-DTW DPs in fp32). The CLIP towers
+take the JAX package's switches ``MODEL.FAST_SOFTMAX``, ``MODEL.BF16_NORMS``
+and ``MODEL.INT8_EVAL`` (``clip_arch``). ``build_model`` builds all ten
+heads of ``configs/``: ``clipspm`` (``CLIPSPMModel`` below), ``clipfsar``,
+``sten`` and ``cpm2c`` (``heads/{clipfsar,sten,cpm2c}.py``, on
+``visual.py:CLIPVideoModel``), and on the torchvision ResNet trunk
+``ta2n``, ``otam``, ``trx``, ``strm``, ``soap`` and ``molo``
+(``heads/<name>.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -66,21 +70,38 @@ PORTED_MODELS = ("clipspm", "clipfsar", "sten", "cpm2c") + RESNET_HEADS
 def check_model_config(cfg) -> None:
     """Raise for a model config the port does not build, before anything
     is built: a name outside ``PORTED_MODELS`` (``NotImplementedError``, as
-    the JAX ``build_model`` raises it) or a JAX-package numerics knob
-    (``NotImplementedError``, naming the ROADMAP item), a remat policy the
-    port does not honour, a train chunk on a BatchNorm backbone
-    (``ValueError``, as the JAX package raises it)."""
+    the JAX ``build_model`` raises it); an unknown CLIP backbone,
+    ``MODEL.INT8_EVAL`` on a ResNet tower, an unknown remat policy or a
+    train chunk on a BatchNorm backbone (``ValueError``, as the JAX package
+    raises them)."""
     name = cfg.MODEL.NAME
     if name not in PORTED_MODELS:
         raise NotImplementedError(
             f"model {name!r} is not one of the system's heads "
             f"{PORTED_MODELS}")
-    for knob in ("FAST_SOFTMAX", "BF16_NORMS", "INT8_EVAL"):
-        if cfg.MODEL.get(knob, False):
-            raise NotImplementedError(
-                f"MODEL.{knob} is a JAX-package numerics option the port "
-                "does not carry (ROADMAP.md, open item 'opt-in extras')")
+    if name not in RESNET_HEADS:
+        clip_arch(cfg)
     _chunking(cfg.MODEL, cfg.MODEL.BACKBONE, name)
+
+
+def clip_arch(cfg) -> CLIPArch:
+    """``MODEL.BACKBONE``'s CLIP architecture with the vision tower's
+    switches ``MODEL.FAST_SOFTMAX``, ``MODEL.BF16_NORMS`` and
+    ``MODEL.INT8_EVAL`` (ViT towers only), as the JAX ``build_model`` sets
+    them for every CLIP head; the ResNet heads read none of them."""
+    backbone, m = cfg.MODEL.BACKBONE, cfg.MODEL
+    if backbone not in CLIP_ARCHS:
+        raise ValueError(f"unknown CLIP backbone {backbone!r}")
+    arch = CLIP_ARCHS[backbone]
+    int8 = bool(m.get("INT8_EVAL", False))
+    if int8 and not arch.is_vit:
+        raise ValueError(
+            "MODEL.INT8_EVAL currently covers the ViT tower's "
+            "projection/MLP matmuls only (the RN50 conv tower has no int8 "
+            "path)")
+    return dataclasses.replace(
+        arch, fast_softmax=bool(m.get("FAST_SOFTMAX", False)),
+        bf16_norms=bool(m.get("BF16_NORMS", False)), int8_eval=int8)
 
 
 def build_model(cfg) -> nn.Module:
@@ -96,9 +117,7 @@ def build_model(cfg) -> nn.Module:
     way, shot = int(cfg.TRAIN.WAY), int(cfg.TRAIN.SHOT)
     if name in RESNET_HEADS:
         return _resnet_head(cfg, name, way, shot, chunk, compute_dtype)
-    if backbone not in CLIP_ARCHS:
-        raise ValueError(f"unknown CLIP backbone {backbone!r}")
-    arch, m = CLIP_ARCHS[backbone], cfg.MODEL
+    arch, m = clip_arch(cfg), cfg.MODEL
     tower = dict(encode_chunk=chunk, train_encode_chunk=train_chunk,
                  compute_dtype=compute_dtype)
     depth = int(m.get("TRANSFORMER_DEPTH", 1) or 1)

@@ -6,8 +6,7 @@ tower plus per-frame features that every CLIP head's model shares."""
 
 from __future__ import annotations
 
-import functools
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Dict, Optional
 
 import torch
@@ -15,51 +14,74 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..ops import tags
 from .backbones.clip import make_clip_visual  # noqa: F401 (re-export)
 from .backbones.resnet import TorchResNet
 
 # What each remat policy of the chunked train encode keeps across the
-# recompute, named as the JAX package names them (clipspm_tpu/models/
-# visual.py:encode_chunked): a test on the aten op that made a tensor.
-# "full" keeps nothing; "attn_out" each block's attention output (the
-# scaled_dot_product_attention op, ``_Attention`` in backbones/clip.py);
-# "dots" every matmul without batch dimensions (the projections and the
-# MLP, not the attention's batched products).
-_SAVED_BY_POLICY = {
-    "full": None,
-    "attn_out": lambda op: "scaled_dot_product" in str(op),
-    "dots": lambda op: op in (torch.ops.aten.mm.default,
-                              torch.ops.aten.addmm.default),
-}
-# the JAX package's policies that need tensors the port's ops do not expose
-# (the post-softmax attention probabilities; the MLP's gelu output)
-_NOT_PORTED_POLICIES = ("attn", "mlp")
+# recompute, as the JAX package names it (clipspm_tpu/models/visual.py:
+# encode_chunked). "full" keeps nothing; "dots" every matmul without batch
+# dimensions (the projections and the MLP, not the attention's batched
+# products); the others the tensors of their tags (ops/tags.py): each
+# block's attention output ("attn_out"), with the attention probabilities
+# ("attn"), or with the MLP's gelu output ("mlp"). Inside a tag policy's
+# contexts the blocks make each tagged tensor with its own operator.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_TAGS_BY_POLICY = {"full": (), "dots": (),
+                   "attn_out": ("attn_out",),
+                   "attn": ("attn_probs", "attn_out"),
+                   "mlp": ("attn_out", "mlp_gelu")}
+POLICIES = tuple(sorted(_TAGS_BY_POLICY))
 
 
 def check_remat_policy(policy: str) -> None:
-    """Refuse a ``MODEL.TRAIN_REMAT_POLICY`` the port does not honour."""
-    if policy in _NOT_PORTED_POLICIES:
-        raise NotImplementedError(
-            f"MODEL.TRAIN_REMAT_POLICY={policy!r} is not ported yet "
-            "(ROADMAP.md, open item 'remat policies attn and mlp'); the port "
-            f"honours {sorted(_SAVED_BY_POLICY)}")
-    if policy not in _SAVED_BY_POLICY:
-        known = sorted(_SAVED_BY_POLICY) + list(_NOT_PORTED_POLICIES)
+    """Refuse a ``MODEL.TRAIN_REMAT_POLICY`` the JAX package does not
+    know (``ValueError``, as it raises it)."""
+    if policy not in POLICIES:
         raise ValueError(f"unknown remat policy {policy!r}; expected one of "
-                         f"{known}")
+                         f"{list(POLICIES)}")
+
+
+@contextmanager
+def _tagged(names, context):
+    with tags.tagging(names), context:
+        yield
 
 
 def _remat_context(policy: str):
+    """The ``context_fn`` of a chunk's checkpoint under ``policy``, or None
+    (``full``)."""
     check_remat_policy(policy)
-    saved = _SAVED_BY_POLICY[policy]
-    if saved is None:
+    if policy == "full":
         return None
+    names = _TAGS_BY_POLICY[policy]
 
     def policy_fn(ctx, op, *args, **kwargs):
-        return (CheckpointPolicy.MUST_SAVE if saved(op)
+        keep = op in _DOTS if policy == "dots" else tags.makes(op, names)
+        return (CheckpointPolicy.MUST_SAVE if keep
                 else CheckpointPolicy.PREFER_RECOMPUTE)
 
-    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+    def context_fn():
+        forward, recompute = create_selective_checkpoint_contexts(policy_fn)
+        return _tagged(names, forward), _tagged(names, recompute)
+
+    return context_fn
+
+
+def _no_cast_cache(device: torch.device):
+    """Autocast as it is, without its cache of weight casts, around the
+    checkpointed chunks. With the cache a chunk's forward takes the casts
+    an earlier chunk made while its recompute, in the backward, makes them
+    afresh, so a selective checkpoint meets operators its forward did not
+    run (torch 2.13 raises for it); and each weight's gradient is summed
+    over the chunks in bf16 before its cast back. Without it each chunk's
+    gradient reaches the fp32 weight on its own, as the JAX package's scan
+    sums them."""
+    if not torch.is_autocast_enabled(device.type):
+        return nullcontext()
+    return torch.autocast(device.type,
+                          dtype=torch.get_autocast_dtype(device.type),
+                          cache_enabled=False)
 
 
 def compute_autocast(device: torch.device,
@@ -104,9 +126,10 @@ def encode_chunked(backbone: nn.Module, frames: torch.Tensor, chunk: int,
             frames = torch.cat([frames, frames[:pad]], dim=0)
         context = _remat_context(remat_policy)
         kw = {} if context is None else {"context_fn": context}
-        feats = torch.cat([
-            checkpoint(backbone, frames[i:i + chunk], use_reentrant=False,
-                       **kw) for i in range(0, frames.shape[0], chunk)])
+        with _no_cast_cache(frames.device):
+            feats = torch.cat([
+                checkpoint(backbone, frames[i:i + chunk], use_reentrant=False,
+                           **kw) for i in range(0, frames.shape[0], chunk)])
         return feats[:N]
     if not chunk or chunk >= N:
         return backbone(frames)

@@ -191,11 +191,12 @@ def check_num_chips(cfg) -> None:
     if n_dp < 1 or n_tp < 1:
         raise ValueError(f"DEVICE.NUM_CHIPS={n_dp} / DEVICE.TP={n_tp} must "
                          "be >= 1")
-    for key, n in (("NUM_CHIPS", n_dp), ("TP", n_tp)):
+    for key, n, item in (("NUM_CHIPS", n_dp, "DDP"),
+                         ("TP", n_tp, "Tensor parallelism")):
         if n > 1:
             raise NotImplementedError(
                 f"DEVICE.{key} > 1 is not ported yet (ROADMAP.md, open item "
-                "'DDP')")
+                f"'{item}')")
 
 
 def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int

@@ -1,5 +1,6 @@
 """Guards of the port package: no JAX imports, the GPU default, the models
-it builds, and the loud refusals of the routes it does not carry yet."""
+it builds, the loud refusals of the routes it does not carry yet and of what
+the JAX package refuses, and the routes it now carries."""
 
 import ast
 import importlib
@@ -17,7 +18,7 @@ from clipspm_tpu.models.fsar import build_model as jax_build_model
 from clipspm_tpu.utils.config import load_config as jax_load
 from clipspm_tpu_torch import resolve_device, weights
 from clipspm_tpu_torch.cli.run import main as port_cli
-from clipspm_tpu_torch.models.fsar import build_model
+from clipspm_tpu_torch.models.fsar import build_model, check_model_config
 from clipspm_tpu_torch.models.heads.clipfsar import CLIPFSARModel
 from clipspm_tpu_torch.models.heads.cpm2c import CPM2CModel
 from clipspm_tpu_torch.models.heads.sten import STENModel
@@ -97,7 +98,7 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("opts,error", [
-    (["MODEL.FAST_SOFTMAX=true"], NotImplementedError),   # opt-in extras
+    (["MODEL.INT8_EVAL=true"], ValueError),         # no int8 RN50 tower
     (["TEST.ONLY_TEST=true", "TEST.TEST_MODEL_PATH=/nonexistent/ckpt"],
      FileNotFoundError),
     (["TEST.ONLY_TEST=true", "DEVICE.NUM_CHIPS=2"],
@@ -105,10 +106,6 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
     (["DEVICE.TP=2"], NotImplementedError),          # tensor parallelism
     (["DEVICE.NUM_CHIPS=0"], ValueError),
     (["SOLVER.ACCUM_DTYPE=float16"], ValueError),
-    (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=attn"],
-     NotImplementedError),                          # remat policies not
-    (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=mlp"],
-     NotImplementedError),                          # ported
     (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=everything"],
      ValueError),
     (["MODEL.TRAIN_ENCODE_CHUNK=40"], ValueError),  # BatchNorm tower
@@ -119,6 +116,23 @@ def test_cli_routes_not_carried_raise_before_model_build(opts, error,
         port_cli(["--cfg", HMDB, "--device", "cpu", *opts,
                   f"CHECKPOINT.CHECKPOINT_DIR={tmp_path}"])
     assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
+
+
+@pytest.mark.parametrize("opts", [
+    ["MODEL.BACKBONE=ViT-B/16", "MODEL.BF16_NORMS=true"],
+    ["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=attn"],
+])
+def test_vit_switches_and_policies_pass_the_config_check(opts):
+    """The routes the CLI refused before the tower's switches and the
+    remat policies ``attn``/``mlp`` were carried: ``check_model_config``
+    now passes them, and the model is built with them."""
+    cfg = load_config(HMDB, opts=opts)
+    check_model_config(cfg)
+    with torch.device("meta"):
+        model = build_model(cfg)
+    assert model.arch.bf16_norms == ("MODEL.BF16_NORMS=true" in opts)
+    assert model.train_remat_policy == (
+        "attn" if "MODEL.TRAIN_REMAT_POLICY=attn" in opts else "attn_out")
 
 
 def test_existing_test_model_path_is_refused(tmp_path):

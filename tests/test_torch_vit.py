@@ -228,13 +228,15 @@ class _CountRecompute(TorchDispatchMode):
 
 @pytest.mark.parametrize("train_chunk,policy", [
     (True, "full"), (4, "full"), (4, "attn_out"), (5, "attn_out"),
-    (4, "dots")])
+    (4, "dots"), (4, "attn"), (4, "mlp")])
 def test_train_chunked_forward_and_grads_match_unchunked(train_chunk, policy):
     """``tests/test_train_encode_chunk.py`` for the port: test-tiny, 16
     frames in chunks of 3 (``True`` reuses the eval width), 4 or 5 (with 4
     frames of padding); the loss to 2e-5 and every gradient to rtol 5e-4 /
-    atol 5e-5. The policy is honoured: ``attn_out`` recomputes no attention
-    in the backward, ``full`` and ``dots`` recompute every block's."""
+    atol 5e-5. The policy is honoured: ``attn_out`` and ``mlp`` recompute no
+    attention in the backward (``attn`` spells it out and keeps its
+    probabilities and output), ``full`` and ``dots`` recompute every
+    block's."""
     arch = tclip.CLIP_ARCHS["test-tiny"]
     kw = dict(arch=arch, way=2, shot=1, spm=SPM_DEFAULT_PARAMS["hmdb"])
     m0 = weights.random_init_(CLIPSPMModel(**kw),
@@ -272,15 +274,15 @@ def test_train_chunked_forward_and_grads_match_unchunked(train_chunk, policy):
     width = 3 if train_chunk is True else train_chunk
     chunks = -(-16 // width)
     assert recomputed[0] == 0
-    assert recomputed[1] == (0 if policy == "attn_out"
+    assert recomputed[1] == (0 if policy in ("attn_out", "attn", "mlp")
                              else chunks * arch.vision_layers)
 
 
-def test_refused_remat_policies():
-    for policy, error in (("attn", NotImplementedError),
-                          ("mlp", NotImplementedError),
-                          ("everything", ValueError)):
-        _, tcfg = _cfgs("test-tiny", TRAIN_ENCODE_CHUNK=4,
-                        TRAIN_REMAT_POLICY=policy)
-        with pytest.raises(error, match="ROADMAP|unknown"):
-            build_model(tcfg)
+def test_unknown_remat_policy_raises():
+    """A policy the JAX package does not know raises its ``ValueError``
+    (every one it knows is honoured: ``attn`` and ``mlp`` in
+    ``tests/test_torch_vit_switches.py``)."""
+    _, tcfg = _cfgs("test-tiny", TRAIN_ENCODE_CHUNK=4,
+                    TRAIN_REMAT_POLICY="everything")
+    with pytest.raises(ValueError, match="unknown"):
+        build_model(tcfg)
