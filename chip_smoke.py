@@ -79,9 +79,22 @@ Phases, in order; any failure ends the run with a nonzero exit:
    against the CPU's (molo's also in fp64 on the card against the CPU's
    fp64);
    - clipspm-vit-train-attn and clipspm-vit-train-mlp: clipspm-vit-train
-     under MODEL.TRAIN_REMAT_POLICY attn and mlp, one 16-episode Adam step
+     under MODEL.TRAIN_REMAT_POLICY attn and mlp, one 8-episode Adam step
      through the CLI (3 K1 launches an episode), then one fp32 step's
-     gradients on the card under the policy against "full"'s.
+     gradients on the card under the policy against "full"'s;
+5. ddp: DEVICE.NUM_CHIPS episode parallelism. Two ranks share cuda:0 over
+   gloo (NCCL refuses two ranks on one device), each a process of its own,
+   held against the single-process oracle (parallel_episodes=2, its own
+   process, run first): clipspm-vit-train and ta2n-train (a 16-episode and
+   a masked 8-episode step at fp32, TF32 off: each episode's loss, the
+   parameters and every BatchNorm buffer after each step, K1/K2 launches
+   over the ranks; then an AMP step timed at N=2 on one card beside N=1,
+   the all-reduces' seconds, each process's peak memory) and clipspm RN50
+   evaluation (the uncached evaluator's per-episode results and the
+   feature-cached evaluator's gathered table, accuracy and CI at N=2 equal
+   to N=1's); with one card the CLI's refusal of DEVICE.NUM_CHIPS=2, with
+   two or more the train paths and ONLY_TEST through the CLI at
+   NUM_CHIPS=2 over NCCL against 1.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1603,12 +1616,14 @@ TRAIN_PATHS = {
 }
 # (cut from 40 train episodes, a validation and a checkpoint at 32 and 100
 # validation and ONLY_TEST episodes, to make room for the tower's switches
-# and the remat policies: still one full step and one masked partial step
-# where TASKS_PER_BATCH is 16)
+# and the remat policies, then the validation and ONLY_TEST to 20 episodes
+# for phase ddp: still one full step and one masked partial step where
+# TASKS_PER_BATCH is 16)
 TRAIN_EPISODES, VAL_FREQ, SAVE_FREQ, VAL_EPISODES, PRINT_FREQ = \
-    24, 16, 16, 50, 8
-# the profiled optimizer step's episodes (per-episode figures)
-PROFILE_EPISODES = 2
+    24, 16, 16, 20, 8
+# the profiled optimizer step's episodes (per-episode figures; cut from 2
+# for phase ddp)
+PROFILE_EPISODES = 1
 # the remat policies each timed over the profiled step's episodes on a
 # remat-chunked tower (clipspm-vit-train), the JAX package's five
 REMAT_POLICIES = ("attn_out", "full", "attn", "mlp", "dots")
@@ -1772,7 +1787,7 @@ def profile_train_step(learner, cfg) -> dict:
     for k, f in functions.items():
         f.backward = ranged(REPLAYS[k], backwards[k])
     try:
-        learner._step(batch, 2)            # warm-up
+        learner._step(batch, tpb)          # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1820,8 +1835,9 @@ def profile_train_step(learner, cfg) -> dict:
 
 
 def check_train_step_against_cpu(cfg_path: str, opts, check: dict) -> dict:
-    """One train step of one episode at full width and 224 (5-way 1-shot
-    1-query, T=8) from identical weights: fp32 on the card, fp32 on the CPU
+    """One train step of one episode at full width and 224 (2-way 1-shot
+    1-query, T=8: cut from 5-way for phase ddp's time, 32 frames where it
+    was 80) from identical weights: fp32 on the card, fp32 on the CPU
     and the fp64 witness on the CPU (TF32 off, dropout's modules in eval and
     BatchNorm in train mode, center crops). Summed gradients, BatchNorm
     running stats and the loss are held to the tolerances above."""
@@ -1836,11 +1852,11 @@ def check_train_step_against_cpu(cfg_path: str, opts, check: dict) -> dict:
     from clipspm_tpu_torch.utils.config import load_config
     from clipspm_tpu_torch.weights import random_init_
 
-    n_eps, shot, queries = 1, 1, 1
+    n_eps, way, shot, queries = 1, 2, 1, 1
     cfg = load_config(cfg_path, opts=[
-        *opts, "USE_AMP=false", f"TRAIN.SHOT={shot}",
+        *opts, "USE_AMP=false", f"TRAIN.WAY={way}", f"TRAIN.SHOT={shot}",
         f"TRAIN.QUERY_PER_CLASS={queries}", "TRAIN.TASKS_PER_BATCH=2"])
-    way, T = int(cfg.TRAIN.WAY), int(cfg.DATA.SEQ_LEN)
+    T = int(cfg.DATA.SEQ_LEN)
     base = random_init_(build_model(cfg), torch.Generator().manual_seed(4))
     width = base.arch.embed_dim if hasattr(base, "arch") else 1
     text = torch.randn(len(cfg.TRAIN.CLASS_NAME), width,
@@ -2268,7 +2284,9 @@ def phase_train_path(name: str) -> dict:
 # train's train profile.
 REMAT_PATHS = {"clipspm-vit-train-attn": "attn",
                "clipspm-vit-train-mlp": "mlp"}
-REMAT_EPISODES = 16
+# one step of 8 (a trailing partial step of TASKS_PER_BATCH 16; cut from
+# one full step of 16 for phase ddp)
+REMAT_EPISODES = 8
 REMAT_GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
 BF16_GRAD_TOL = 4 * 2.0 ** -8
 
@@ -2424,7 +2442,9 @@ def phase_remat_path(name: str) -> dict:
             raise AssertionError(f"{name}: the model trains under "
                                  f"{model.train_remat_policy!r} in chunks of "
                                  f"{model.train_encode_chunk}")
-        if [n for n, _ in steps] != [tpb] * (REMAT_EPISODES // tpb) \
+        want_steps = [tpb] * (REMAT_EPISODES // tpb) + (
+            [REMAT_EPISODES % tpb] if REMAT_EPISODES % tpb else [])
+        if [n for n, _ in steps] != want_steps \
                 or len(losses) != len(steps) \
                 or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"{name}: steps {steps}, losses {losses}")
@@ -2447,6 +2467,441 @@ def phase_remat_path(name: str) -> dict:
            "grads_vs_full": grads,
            "check_seconds": time.perf_counter() - t0}
     log(json.dumps({"remat_path": out}))
+    return out
+
+
+# Phase ddp: DEVICE.NUM_CHIPS episode parallelism (clipspm_tpu_torch/parallel/
+# mesh.py). The machine may show one card, and NCCL refuses two ranks on one
+# device, so two ranks share cuda:0 over gloo (whose collectives take CUDA
+# tensors), each in a process of its own, held against the single-process
+# oracle (parallel_episodes=2), which runs in its own process before them
+# and ends, freeing its memory, before they start; each process runs the
+# checks below in turn, freeing the card's memory between them. Frames are
+# the seeded source after the decode stage, as above.
+# - clipspm-vit-train and ta2n-train: a step of 16 episodes and a masked
+#   step of 8 (the trailing partial batch) at fp32, TF32 off (the config's
+#   model with its autocast off): each episode's loss, and the parameters
+#   and every BatchNorm buffer after each step, at DDP_STATE_TOL; K1 (3 an
+#   episode, 48 over the ranks in the first step) and K2 (1 an episode)
+#   counted over the ranks; then a 2-episode warm-up and a timed
+#   8-episode step at the config's AMP (bf16, TF32 on) at N=2 on one card
+#   beside N=1 (the oracle), the all-reduces' seconds and each process's
+#   peak memory. clipspm-train (RN50, 44.7 GB a rank) does not fit twice.
+# - clipspm RN50 evaluation: the uncached evaluator (64 episodes, 32 a step,
+#   16 a rank) and the feature-cached one (50 episodes) at N=2 against N=1
+#   (the config's AMP): per-episode loss and accuracy equal, the gathered
+#   table within DDP_TABLE_TOL of N=1's, accuracy and CI equal. N=1 encodes
+#   DDP_ENCODE_VIDEOS a step, each rank as many (the same batch shape).
+# - the CLI's refusal of DEVICE.NUM_CHIPS=2 with one card visible (the JAX
+#   ValueError, before anything is built); with two or more cards, the
+#   same paths' train losses and ONLY_TEST accuracy through the CLI over
+#   NCCL at NUM_CHIPS=2 against 1, within 1e-3.
+DDP_TRAIN_PATHS = ("clipspm-vit-train", "ta2n-train")
+DDP_STEPS = (16, 8)
+DDP_TIMED = (2, 8)
+DDP_STATE_TOL = dict(rtol=1e-4, atol=1e-5)
+DDP_LOSS_TOL = 1e-4
+DDP_EVAL_EPISODES, DDP_CACHED_EPISODES, DDP_ENCODE_VIDEOS = 64, 50, 15
+# the table under AMP on the card: batches of the same shape on both sides,
+# so equal but for an algorithm change between processes: two bf16 ulps of
+# the largest feature
+DDP_TABLE_TOL = 2.0 ** -7
+DDP_CLI_TOL = 1e-3
+
+
+def _ddp_cfg(spec: dict, root: str, world: int, opts=()):
+    from clipspm_tpu_torch.utils.config import load_config
+
+    return load_config(spec["cfg"], splits_root=root, opts=[
+        *spec["opts"], f"DATA.DATA_DIR={root}", f"DEVICE.NUM_CHIPS={world}",
+        f"CHECKPOINT.CHECKPOINT_DIR={os.path.join(root, 'ckpt')}",
+        "DATA.NUM_WORKERS=4", *opts])
+
+
+def _ddp_process(mesh):
+    """A ddp check's set-up in its process: seeded frames after the decode
+    stage, the card's memory freed, a fresh peak, counters at 0; returns
+    (counters, mesh or None)."""
+    import gc
+
+    from clipspm_tpu_torch.data import pipeline
+    from clipspm_tpu_torch.train import feature_cache
+
+    pipeline.decode_path_lists = seeded_frames
+    feature_cache.decode_path_lists = seeded_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    _zero_counters(counters)
+    return counters, (mesh if mesh.world > 1 else None)
+
+
+def _ddp_rank(mesh, roots, out):
+    """One ddp process, the oracle and N=1 (a group of one) or a rank of
+    two: every train check, then the eval check, each timed."""
+    for name in DDP_TRAIN_PATHS:
+        _ddp_train_rank(mesh, name, roots[name], out)
+    _ddp_eval_rank(mesh, roots["eval"], out)
+
+
+class _Timed:
+    """Times a mesh's all-reduces (each synchronised on both sides):
+    gradients (one call a step, many tensors) apart from the BatchNorm
+    means (one flat tensor a microstep)."""
+
+    def __init__(self, mesh):
+        self.seconds = {"gradients": 0.0, "batchnorm": 0.0}
+        if mesh is None:
+            return
+        all_reduce = type(mesh).all_reduce_sum
+
+        def timed(m, tensors):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(m, tensors)
+            torch.cuda.synchronize()
+            self.seconds["gradients" if len(tensors) > 1 else "batchnorm"] \
+                += time.perf_counter() - t0
+        type(mesh).all_reduce_sum = timed
+
+
+def _ddp_train_rank(mesh, name, root, out):
+    """One process's ddp train check: the oracle (a group of one,
+    parallel_episodes=2) or a rank. Writes its per-episode losses, launch
+    counts, timings and peak; the oracle its state after each step, which
+    the ranks hold themselves against."""
+    from clipspm_tpu_torch import set_matmul_precision
+    from clipspm_tpu_torch.train.setup import build_learner
+
+    t_check = time.perf_counter()
+    counters, group = _ddp_process(mesh)
+    spec = PATHS[TRAIN_PATHS[name]["eval_path"]]
+    cfg = _ddp_cfg(spec, root, mesh.world, ("TEST.ONLY_TEST=false",))
+    learner = build_learner(cfg, log_fn=lambda *_: None, device="cuda:0",
+                            allow_random_weights=True, mesh=group)
+    if group is None:
+        learner.parallel_episodes = 2
+    model, dtype = learner.model, learner.model.compute_dtype
+    losses = []
+    episode_loss = learner._episode_loss
+
+    def recorded(ep, train=True):
+        out_ = episode_loss(ep, train)
+        losses.append(float(out_[0].detach()))
+        return out_
+
+    learner._episode_loss = recorded
+    it = iter(learner.train_source)
+    res = {"losses": {}, "launches": [], "state_vs_oracle": []}
+    model.compute_dtype = None
+    set_matmul_precision(False)
+    for step, n in enumerate(DDP_STEPS):
+        start, before = learner.episode, len(losses)
+        _zero_counters(counters)
+        learner.train_episodes([next(it) for _ in range(n)])
+        torch.cuda.synchronize()
+        res["launches"].append(_read_counters(counters))
+        for e, loss in zip(learner._positions(n), losses[before:]):
+            res["losses"][start + e] = loss
+        path = os.path.join(out, f"{name}-oracle-step{step}.pt")
+        if group is None:
+            torch.save({k: v.cpu() for k, v in
+                        model.state_dict().items()}, path)
+            continue
+        want = torch.load(path, map_location="cuda:0", weights_only=True)
+        worst, bad = 0.0, []
+        for k, v in model.state_dict().items():
+            diff = (v.double() - want[k].double()).abs()
+            worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+            if not torch.allclose(v.double(), want[k].double(),
+                                  **DDP_STATE_TOL):
+                bad.append(k)
+        res["state_vs_oracle"].append({"max_abs_diff": worst,
+                                       "off": bad[:5], "n_off": len(bad)})
+    learner._episode_loss = episode_loss
+    model.compute_dtype = dtype
+    set_matmul_precision(True)
+    timer = _Timed(group)
+    warm, timed = DDP_TIMED
+    learner.train_episodes([next(it) for _ in range(warm)])
+    timer.seconds = {k: 0.0 for k in timer.seconds}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner.train_episodes([next(it) for _ in range(timed)])
+    torch.cuda.synchronize()
+    res["amp_step_seconds"] = time.perf_counter() - t0
+    res["all_reduce_seconds"] = timer.seconds
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    learner.close()
+    res["seconds"] = time.perf_counter() - t_check
+    torch.save(res, os.path.join(out, f"{name}-{mesh.world}-{mesh.rank}.pt"))
+
+
+def _ddp_eval_rank(mesh, root, out):
+    """One process's ddp eval check (N=1 or a rank): clipspm RN50,
+    uncached then feature-cached, at the config's AMP."""
+    from clipspm_tpu_torch.train import feature_cache
+    from clipspm_tpu_torch.train.setup import (build_catalog_and_sampler,
+                                               build_learner)
+
+    t_check = time.perf_counter()
+    counters, group = _ddp_process(mesh)
+    spec = PATHS["clipspm"]
+    cfg = _ddp_cfg(spec, root, mesh.world, (
+        "TEST.ONLY_TEST=true",
+        f"TEST.CACHE_ENCODE_VIDEOS={DDP_ENCODE_VIDEOS * mesh.world}"))
+    learner = build_learner(cfg, log_fn=lambda *_: None, device="cuda:0",
+                            allow_random_weights=True, mesh=group)
+    t0 = time.perf_counter()
+    unc = learner.evaluate(DDP_EVAL_EPISODES,
+                           batch_size=int(cfg.TEST.EVAL_BATCH))
+    res = {"uncached": {"loss_acc": unc["loss_acc"],
+                        "seconds": time.perf_counter() - t0,
+                        "launches": _read_counters(counters)}}
+    learner.test_source.close()
+    catalog, sampler = build_catalog_and_sampler(
+        cfg, "test", False, int(cfg.TEST.QUERY_PER_CLASS))
+    ev = feature_cache.cached_evaluator(cfg, learner, catalog, sampler,
+                                        log_fn=lambda *_: None)
+    tables = []
+    build_table = ev.build_table
+    ev.build_table = lambda plans: tables.append(build_table(plans)) \
+        or tables[-1]
+    _zero_counters(counters)
+    try:
+        cached = ev.evaluate(DDP_CACHED_EPISODES)
+    finally:
+        ev.close()
+        learner.close()
+    res["cached"] = {k: cached[k] for k in ("accuracy", "confidence",
+                                            "loss", "unique_videos")}
+    res["cached"]["launches"] = _read_counters(counters)
+    res["table"] = tables[0][0].cpu()
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res["seconds"] = time.perf_counter() - t_check
+    if mesh.is_main:
+        torch.save(res, os.path.join(out, f"eval-{mesh.world}.pt"))
+
+
+def _ddp_spawn(fn, world, args) -> float:
+    """``fn`` over ``world`` processes on cuda:0 over gloo; seconds."""
+    from clipspm_tpu_torch.parallel import mesh as pmesh
+
+    _fresh_peak()
+    t0 = time.perf_counter()
+    pmesh.spawn(fn, world, "cuda", args=args, backend="gloo",
+                devices=["cuda:0"] * world, timeout_s=900)
+    return time.perf_counter() - t0
+
+
+def _ddp_write_train_split(root, name):
+    run = TRAIN_PATHS[name]
+    spec = PATHS[run["eval_path"]]
+    write_split(root, spec["frame_dir"], spec["split_dir"], spec["classes"],
+                spec["videos"], SPLIT_FRAMES, SPLIT_PX)
+    write_split(root, spec["frame_dir"], spec["split_dir"],
+                run["train_classes"], run["train_videos"], SPLIT_FRAMES,
+                SPLIT_PX, mode="train")
+
+
+def ddp_train_check(name: str, out: str) -> dict:
+    per = TRAIN_PATHS[name]["launches"]
+    oracle = torch.load(os.path.join(out, f"{name}-1-0.pt"),
+                        weights_only=False)
+    ranks = [torch.load(os.path.join(out, f"{name}-2-{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    want = oracle["losses"]
+    got = {e: v for r in ranks for e, v in r["losses"].items()}
+    if sorted(got) != sorted(want) or len(want) != sum(DDP_STEPS):
+        raise AssertionError(f"ddp {name}: episodes {sorted(got)} on the "
+                             f"ranks, {sorted(want)} in the oracle")
+    loss_err = max(abs(got[e] - want[e]) / max(abs(want[e]), 1e-30)
+                   for e in want)
+    if not loss_err <= DDP_LOSS_TOL:
+        raise AssertionError(f"ddp {name}: per-episode losses {loss_err:.3e}"
+                             f" from the oracle's")
+    for r in ranks:
+        for step in r["state_vs_oracle"]:
+            if step["n_off"]:
+                raise AssertionError(f"ddp {name}: state after a step off "
+                                     f"the oracle's: {step}")
+    for step, n in enumerate(DDP_STEPS):
+        for k, per_episode in per.items():
+            total = sum(r["launches"][step][k] for r in ranks)
+            if total != per_episode * n or \
+                    oracle["launches"][step][k] != per_episode * n:
+                raise AssertionError(
+                    f"ddp {name}: {k} launched {total} times over the ranks"
+                    f" and {oracle['launches'][step][k]} in the oracle in "
+                    f"step {step}; expected {per_episode * n}")
+    out = {"path": name, "backend": "gloo, two ranks on cuda:0",
+           "episodes": sum(DDP_STEPS), "step_episodes": list(DDP_STEPS),
+           "loss_max_rel_diff": loss_err, "loss_tol": DDP_LOSS_TOL,
+           "state_max_abs_diff": [max(r["state_vs_oracle"][s]["max_abs_diff"]
+                                      for r in ranks)
+                                  for s in range(len(DDP_STEPS))],
+           "state_tol": DDP_STATE_TOL,
+           "launches_step_1": {k: [r["launches"][0][k] for r in ranks]
+                               for k in per},
+           "amp_step_seconds": {"n1_oracle": oracle["amp_step_seconds"],
+                                "n2_one_card": max(r["amp_step_seconds"]
+                                                   for r in ranks)},
+           "amp_step_episodes": DDP_TIMED[1],
+           "all_reduce_seconds_step": [r["all_reduce_seconds"]
+                                       for r in ranks],
+           "peak_memory_bytes": {"oracle": oracle["peak_memory_bytes"],
+                                 "ranks": [r["peak_memory_bytes"]
+                                           for r in ranks]},
+           "check_seconds": {"oracle": oracle["seconds"],
+                             "ranks": [r["seconds"] for r in ranks]},
+           "card": CARD}
+    log(json.dumps({"ddp_train": out}))
+    return out
+
+
+def ddp_eval_check(out: str) -> dict:
+    import numpy as np
+
+    one, two = (torch.load(os.path.join(out, f"eval-{w}.pt"),
+                           weights_only=False) for w in (1, 2))
+    la1, la2 = one["uncached"]["loss_acc"], two["uncached"]["loss_acc"]
+    if la1.shape != (DDP_EVAL_EPISODES, 2) or la2.shape != la1.shape \
+            or not np.array_equal(la1[:, 1], la2[:, 1]) \
+            or not np.allclose(la1[:, 0], la2[:, 0], rtol=1e-6, atol=0):
+        raise AssertionError(
+            f"ddp uncached: per-episode (loss, acc) at N=2 differ from "
+            f"N=1's: max {np.abs(la1 - la2).max() if la1.shape == la2.shape else la2.shape}")
+    t1, t2 = one["table"].float(), two["table"].float()
+    table_err = float((t1 - t2).abs().max()) / float(t1.abs().max())
+    if t1.shape != t2.shape or not table_err <= DDP_TABLE_TOL:
+        raise AssertionError(f"ddp cached: table {tuple(t2.shape)} at N=2 "
+                             f"vs {tuple(t1.shape)}, {table_err:.3e} of the "
+                             "largest")
+    c1, c2 = one["cached"], two["cached"]
+    if (c1["accuracy"], c1["confidence"]) != (c2["accuracy"],
+                                              c2["confidence"]):
+        raise AssertionError(f"ddp cached: N=2 {c2} against N=1 {c1}")
+    per = PATHS["clipspm"]["launches"]["K1"]
+    want = {"uncached": per * DDP_EVAL_EPISODES,
+            "cached": per * DDP_CACHED_EPISODES}
+    launches = {k: [one[k]["launches"]["K1"], two[k]["launches"]["K1"]]
+                for k in want}
+    if any(launches[k] != [n, n // 2] for k, n in want.items()):
+        raise AssertionError(f"ddp eval: K1 launches {launches} at N=1 and "
+                             f"on rank 0 of 2, expected {want} and half")
+    out = {"path": "clipspm (RN50)", "backend": "gloo, two ranks on cuda:0",
+           "uncached_episodes": DDP_EVAL_EPISODES,
+           "uncached_loss_max_abs_diff": float(np.abs(la1 - la2).max()),
+           "cached_episodes": DDP_CACHED_EPISODES,
+           "table_shape": list(t1.shape), "table_dtype": str(one["table"]
+                                                             .dtype),
+           "table_max_diff_of_largest": table_err,
+           "table_tol": DDP_TABLE_TOL,
+           "cached_n1": c1, "cached_n2": c2,
+           "k1_launches_n1_and_rank0": launches,
+           "uncached_seconds": {"n1": one["uncached"]["seconds"],
+                                "n2_one_card": two["uncached"]["seconds"]},
+           "peak_memory_bytes": {"n1": one["peak_memory_bytes"],
+                                 "rank0": two["peak_memory_bytes"]},
+           "check_seconds": {"n1": one["seconds"],
+                             "rank0": two["seconds"]},
+           "card": CARD}
+    log(json.dumps({"ddp_eval": out}))
+    return out
+
+
+def ddp_cli_refusal() -> str:
+    from clipspm_tpu_torch.cli.run import main as cli_main
+
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            cli_main(["--cfg", PATHS["clipspm"]["cfg"],
+                      "--allow-random-weights", "DEVICE.NUM_CHIPS=2",
+                      f"CHECKPOINT.CHECKPOINT_DIR={root}"])
+        except ValueError as e:
+            if "needs 2 devices but only 1 are visible" not in str(e):
+                raise
+            if os.listdir(root):
+                raise AssertionError("the refusal wrote under the "
+                                     f"checkpoint dir: {os.listdir(root)}")
+            return str(e)
+    raise AssertionError("DEVICE.NUM_CHIPS=2 ran with one card visible")
+
+
+def _train_losses(ckpt: str) -> list:
+    return [r["value"] for r in _read_jsonl(os.path.join(ckpt,
+                                                         "metrics.jsonl"))
+            if r["tag"] == "loss/Train_loss[it]"]
+
+
+def ddp_nccl_cli(name: str) -> dict:
+    """With two or more cards: the train path through the CLI at
+    NUM_CHIPS=2 over NCCL against 1 (DDP_STEPS' episodes, one step of 16
+    and a masked one), then ONLY_TEST from each run's state."""
+    from clipspm_tpu_torch.cli.run import main as cli_main
+
+    run = TRAIN_PATHS[name]
+    spec = PATHS[run["eval_path"]]
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        _ddp_write_train_split(root, name)
+        for world in (1, 2):
+            ckpt = os.path.join(root, f"ckpt{world}")
+            flags = ["--cfg", spec["cfg"], "--splits-root", root,
+                     "--allow-random-weights", *spec["opts"],
+                     f"DATA.DATA_DIR={root}", f"DEVICE.NUM_CHIPS={world}",
+                     f"CHECKPOINT.CHECKPOINT_DIR={ckpt}"]
+            t0 = time.perf_counter()
+            cli_main([*flags, "TEST.ONLY_TEST=false",
+                      f"TRAIN.TRAIN_EPISODES={sum(DDP_STEPS)}",
+                      "TRAIN.VAL_FREQ=0", f"TRAIN.PRINT_FREQ={DDP_STEPS[0]}"])
+            test = cli_main([*flags, "TEST.ONLY_TEST=true",
+                             f"TEST.TEST_EPISODES={DDP_CACHED_EPISODES}"])
+            res[world] = {"train_losses": _train_losses(ckpt),
+                          "only_test_accuracy": test["accuracy"],
+                          "seconds": time.perf_counter() - t0}
+    l1, l2 = res[1]["train_losses"], res[2]["train_losses"]
+    if len(l1) != len(DDP_STEPS) or len(l2) != len(l1) or any(
+            abs(a - b) > DDP_CLI_TOL * max(1.0, abs(a))
+            for a, b in zip(l1, l2)) or abs(
+            res[1]["only_test_accuracy"] - res[2]["only_test_accuracy"]) \
+            > DDP_CLI_TOL:
+        raise AssertionError(f"ddp {name} over NCCL: {res}")
+    out = {"path": name, "backend": "nccl, cuda:0 and cuda:1", **{
+        f"n{w}": r for w, r in res.items()}, "card": CARD}
+    log(json.dumps({"ddp_nccl": out}))
+    return out
+
+
+def phase_ddp() -> dict:
+    """Episode parallelism: the one-card gloo half always, the NCCL half
+    where two or more cards are visible."""
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {name: os.path.join(tmp, name) for name in DDP_TRAIN_PATHS}
+        for name, root in roots.items():
+            _ddp_write_train_split(root, name)
+        # the eval check's clipspm split is clipspm-vit-train's test split
+        roots["eval"] = roots["clipspm-vit-train"]
+        res = os.path.join(tmp, "out")
+        os.makedirs(res)
+        seconds = {"oracle and N=1": _ddp_spawn(_ddp_rank, 1,
+                                                (roots, res)),
+                   "two ranks": _ddp_spawn(_ddp_rank, 2, (roots, res))}
+        log(json.dumps({"ddp_process_seconds": seconds}))
+        out = {"train": {name: ddp_train_check(name, res)
+                         for name in DDP_TRAIN_PATHS},
+               "eval": ddp_eval_check(res)}
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        out["cli_refusal"] = ddp_cli_refusal()
+        log(f"ddp: {cards} card visible: two ranks on cuda:0 over gloo "
+            "(backend='gloo') ran; the NCCL half needs two cards and did "
+            "not run")
+    else:
+        out["nccl"] = {name: ddp_nccl_cli(name) for name in DDP_TRAIN_PATHS}
+        log(f"ddp: {cards} cards visible: two ranks on cuda:0 over gloo "
+            "(backend='gloo') and the NCCL half over cuda:0 and cuda:1 ran")
     return out
 
 
@@ -2474,6 +2929,7 @@ def main() -> int:
               for name in TRAIN_PATHS}
     remats = {name: timed(name, phase_remat_path, name)
               for name in REMAT_PATHS}
+    ddp = timed("ddp", phase_ddp)
     log(json.dumps({"phase_seconds": seconds}))
     for k, entry in (("K1", k1), ("K2", k2)):
         entry["launches_by_path"] = {
@@ -2482,7 +2938,13 @@ def main() -> int:
                for name, r in trains.items()
                for stage in ("train", "val", "only_test")},
             **{f"{name} (train)": r["launches"][k]
-               for name, r in remats.items()}}
+               for name, r in remats.items()},
+            **{f"ddp {name} (ranks, first step of {DDP_STEPS[0]})":
+               sum(r["launches_step_1"].get(k, [0]))
+               for name, r in ddp["train"].items()},
+            **{f"ddp clipspm {stage} (N=1; rank 0 of 2)":
+               ddp["eval"]["k1_launches_n1_and_rank0"][stage]
+               for stage in ("uncached", "cached") if k == "K1"}}
     k1["launches"] = evals["clipspm"]["launches"]["K1"]
     k2["launches"] = evals["ta2n"]["launches"]["K2"]
     log(json.dumps({"kernels": [k1, k2]}))

@@ -22,14 +22,23 @@ uncached evaluator with a warning line. It builds all ten heads of
 ta2n, otam, trx, strm, soap and molo (torchvision ResNet trunk), with the
 CLIP towers' switches ``MODEL.FAST_SOFTMAX``, ``MODEL.BF16_NORMS`` and
 ``MODEL.INT8_EVAL`` and every ``MODEL.TRAIN_REMAT_POLICY`` of the JAX
-package. What the port does not carry yet (several GPUs) raises
-``NotImplementedError`` naming its ROADMAP item, and what the JAX package
-refuses raises its ``ValueError``, before anything is built.
+package.
+
+``DEVICE.NUM_CHIPS=N`` above 1 runs N ranks, rank ``r`` on ``cuda:r`` (or
+on the CPU with ``--device cpu``): the CLI checks the config, then starts
+them (``torch.multiprocessing`` on a free local port), or joins the group
+of a ``torchrun`` that started it; each rank trains and evaluates its share
+of the episodes (``parallel/mesh.py``), rank 0 alone prints and writes, and
+a rank that raises ends the run with its error. What the port does not
+carry yet (``DEVICE.TP`` above 1) raises ``NotImplementedError`` naming its
+ROADMAP item, and what the JAX package refuses raises its ``ValueError``,
+before anything is built.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -53,12 +62,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_what_is_not_carried(cfg) -> None:
+def _refuse_what_is_not_carried(cfg, device=None) -> None:
     from clipspm_tpu_torch.models.fsar import check_model_config
     from clipspm_tpu_torch.train.learner import accum_dtype
     from clipspm_tpu_torch.train.setup import check_num_chips
 
-    check_num_chips(cfg)
+    check_num_chips(cfg, device)
     check_model_config(cfg)
     accum_dtype(cfg)
 
@@ -77,15 +86,16 @@ def _cached_evaluator(cfg, learner, catalog, sampler, log, what: str):
 
 def main(argv=None) -> dict:
     """Trains, or runs the test protocol; returns the result dict
-    (``Learner.run``'s, or the evaluator's)."""
+    (``Learner.run``'s, or the evaluator's; rank 0's over ranks)."""
     args = parse_args(argv)
     from clipspm_tpu_torch import resolve_device
+    from clipspm_tpu_torch.parallel import mesh as pmesh
     from clipspm_tpu_torch.train.checkpoint import payload_file
-    from clipspm_tpu_torch.utils.config import load_config
+    from clipspm_tpu_torch.train.setup import num_chips
 
-    cfg = load_config(args.cfg_file, base_path=args.base_file,
-                      opts=args.opts, splits_root=args.splits_root)
-    _refuse_what_is_not_carried(cfg)
+    cfg = _load(args)
+    device = resolve_device(args.device)
+    _refuse_what_is_not_carried(cfg, device)
     test_model_path = str(cfg.TEST.get("TEST_MODEL_PATH", "") or "")
     if cfg.TEST.ONLY_TEST and test_model_path:
         # a set but unloadable path never falls through to 'best' or to the
@@ -95,25 +105,62 @@ def main(argv=None) -> dict:
                 f"TEST.TEST_MODEL_PATH={test_model_path!r} does not exist — "
                 "can't test")
         payload_file(os.path.abspath(test_model_path))
-    device = resolve_device(args.device)
+    n = num_chips(cfg)
+    if n == 1:
+        return _run(args, cfg, device)
+    if pmesh.torchrun_env():
+        mesh = pmesh.join_torchrun(device, n)
+        try:
+            return _run(args, cfg, mesh.device, mesh)
+        finally:
+            pmesh.close()
+    # the ranks parse the same arguments (a config does not pickle)
+    return pmesh.spawn(_rank, n, device, args=(argv,))
 
+
+def _load(args):
+    from clipspm_tpu_torch.utils.config import load_config
+
+    return load_config(args.cfg_file, base_path=args.base_file,
+                       opts=args.opts, splits_root=args.splits_root)
+
+
+def _rank(mesh, argv) -> dict:
+    args = parse_args(argv)
+    return _run(args, _load(args), mesh.device, mesh)
+
+
+def _run(args, cfg, device, mesh=None) -> dict:
+    """One process's run: the whole of it, or rank ``mesh.rank``'s share
+    (only rank 0 prints, writes ``log.txt`` and ``metrics.jsonl`` and
+    saves checkpoints)."""
     from clipspm_tpu_torch.train.checkpoint import CheckpointManager
     from clipspm_tpu_torch.train.setup import (build_catalog_and_sampler,
                                                build_learner)
     from clipspm_tpu_torch.utils.metrics import MetricsWriter
 
+    main_rank = mesh is None or mesh.is_main
+    test_model_path = str(cfg.TEST.get("TEST_MODEL_PATH", "") or "")
     ckpt_dir = str(cfg.CHECKPOINT.CHECKPOINT_DIR)
     os.makedirs(ckpt_dir, exist_ok=True)
-    with open(os.path.join(ckpt_dir, "log.txt"), "a") as logfile:
-        def log(msg: str):
-            print(msg)
-            logfile.write(f"{time.strftime('%m/%d/%Y %H:%M:%S')} {msg}\n")
-            logfile.flush()
+    with contextlib.ExitStack() as stack:
+        if main_rank:
+            logfile = stack.enter_context(
+                open(os.path.join(ckpt_dir, "log.txt"), "a"))
+
+            def log(msg: str):
+                print(msg)
+                logfile.write(f"{time.strftime('%m/%d/%Y %H:%M:%S')} "
+                              f"{msg}\n")
+                logfile.flush()
+        else:
+            def log(msg: str):
+                pass
 
         log(f"Options: {cfg.dump()}")
-        learner = build_learner(cfg, log_fn=log, device=device,
+        learner = build_learner(cfg, log_fn=log, device=device, mesh=mesh,
                                 allow_random_weights=args.allow_random_weights)
-        manager = CheckpointManager(ckpt_dir)
+        manager = CheckpointManager(ckpt_dir, mesh)
         restored = False
         if cfg.CHECKPOINT.get("RESUME_FROM_CHECKPOINT", False) \
                 and manager.exists("best"):
@@ -121,8 +168,9 @@ def main(argv=None) -> dict:
             log(f"Resumed from episode {payload['meta']['iteration']}")
             restored = True
         # JSONL, and TensorBoard event files when tensorboard imports
-        metrics = MetricsWriter(os.path.join(ckpt_dir, "metrics.jsonl"),
-                                tb_dir=os.path.join(ckpt_dir, "tb"))
+        metrics = (MetricsWriter(os.path.join(ckpt_dir, "metrics.jsonl"),
+                                 tb_dir=os.path.join(ckpt_dir, "tb"))
+                   if main_rank else None)
         eval_batch = max(1, int(cfg.TEST.get("EVAL_BATCH", 1) or 1))
         cached = bool(cfg.TEST.get("CACHE_FEATURES", False))
         try:
@@ -156,9 +204,10 @@ def main(argv=None) -> dict:
                                            batch_size=eval_batch)
                 log(f"{cfg.DATA.DATASET}: {res['accuracy']:.2f} "
                     f"+/- {res['confidence']:.2f} (loss {res['loss']:.4f})")
-                metrics.scalars({
-                    f"TEST/{cfg.DATA.DATASET}_acc": res["accuracy"],
-                    f"TEST/{cfg.DATA.DATASET}_ci": res["confidence"]}, 0)
+                if metrics is not None:
+                    metrics.scalars({
+                        f"TEST/{cfg.DATA.DATASET}_acc": res["accuracy"],
+                        f"TEST/{cfg.DATA.DATASET}_ci": res["confidence"]}, 0)
             else:
                 log("Conduct Training:")
                 # one evaluator for every validation: its seeded sampler
@@ -184,8 +233,11 @@ def main(argv=None) -> dict:
                         val.close()
         finally:
             learner.close()
-            metrics.close()
+            if metrics is not None:
+                metrics.close()
     return res
+
+
 
 
 if __name__ == "__main__":

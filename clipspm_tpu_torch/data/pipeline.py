@@ -89,6 +89,12 @@ def decode_plan(plan: EpisodePlan, catalog: SplitCatalog,
     )
 
 
+def _frames_present(plan: EpisodePlan, catalog: SplitCatalog) -> bool:
+    """Whether every frame file of ``plan`` exists."""
+    return all(os.path.isfile(p) for which in ("support", "target")
+               for clip in plan.frame_paths(catalog, which) for p in clip)
+
+
 class EpisodeLoader:
     """Prefetching episode stream over a seeded sampler.
 
@@ -97,12 +103,23 @@ class EpisodeLoader:
     (missing or corrupt frames, a sampler error) is dropped and resampled;
     after 100 failures in a row the error is surfaced to the consumer and
     kept, so every later iterator raises it too. ``close()`` ends iteration.
+
+    ``shard=(rank, world)``: every rank plans the whole stream (the same
+    seed, the same plans) and decodes only its share, slots ``rank, rank +
+    world, ...``, yielding None in the other ranks' places. Each rank drops
+    a plan with a missing frame file before it decodes anything, so all
+    ranks drop the same plans and keep the stream one rank alone would
+    have; a plan of this rank that then fails to decode (a corrupt frame)
+    cannot be replaced without the others, so the stream ends with that
+    error on this rank, which stops the run.
     """
 
     def __init__(self, sampler: EpisodeSampler, num_workers: int = 8,
-                 prefetch: int = 4, use_native: bool = True):
+                 prefetch: int = 4, use_native: bool = True,
+                 shard: tuple = (0, 1)):
         self.sampler = sampler
         self.catalog = sampler.catalog
+        self.rank, self.world = (int(x) for x in shard)
         # a frame geometry is pinned only when the native batch decoder
         # loads; otherwise decode goes per frame through PIL in the pool
         if use_native:
@@ -121,23 +138,51 @@ class EpisodeLoader:
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
-    def _producer(self):
+    def _decode(self, plan: EpisodePlan) -> Episode:
+        return decode_plan(plan, self.catalog, self._pool,
+                           frame_size=self.frame_size,
+                           native_threads=self.native_threads)
+
+    def _next_item(self, slot: int):
+        """The item of stream slot ``slot``: an Episode, None (another
+        rank's), or the terminal error."""
         failures = 0
-        while not self._stop.is_set():
+        while True:
             try:
-                item = decode_plan(self.sampler.sample(), self.catalog,
-                                   self._pool, frame_size=self.frame_size,
-                                   native_threads=self.native_threads)
-                failures = 0
-            except Exception as exc:  # noqa: BLE001 - resample, bounded
-                failures += 1
-                if failures < 100:
-                    continue
-                # a raise here would end this thread silently and leave the
-                # consumer blocked on the queue: hand the error over instead
-                item = RuntimeError("episode pipeline failed 100 times in a "
-                                    f"row; last error: {exc!r}")
-                item.__cause__ = exc
+                plan = self.sampler.sample()
+                if self.world == 1:
+                    return self._decode(plan)
+                if _frames_present(plan, self.catalog):
+                    if slot % self.world != self.rank:
+                        return None
+                    try:
+                        return self._decode(plan)
+                    except Exception as exc:  # noqa: BLE001 - ends stream
+                        err = RuntimeError(
+                            f"episode {slot} failed to decode on rank "
+                            f"{self.rank} of {self.world}, which cannot "
+                            f"replace it alone: {exc!r}")
+                        err.__cause__ = exc
+                        return err
+                exc = FileNotFoundError(f"episode {slot}: a frame file is "
+                                        "missing")
+            except Exception as e:  # noqa: BLE001 - resample, bounded
+                exc = e
+            failures += 1
+            if failures >= 100:
+                # a raise here would end the producer silently and leave
+                # the consumer blocked on the queue: hand the error over
+                err = RuntimeError("episode pipeline failed 100 times in a "
+                                   f"row; last error: {exc!r}")
+                err.__cause__ = exc
+                return err
+
+    def _producer(self):
+        slot = 0
+        while not self._stop.is_set():
+            item = self._next_item(slot)
+            slot += 1
+            if isinstance(item, Exception):
                 self._error = item
             while not self._stop.is_set():
                 try:
@@ -148,7 +193,7 @@ class EpisodeLoader:
             if isinstance(item, Exception):
                 return
 
-    def __iter__(self) -> Iterator[Episode]:
+    def __iter__(self) -> Iterator[Optional[Episode]]:
         while True:
             try:
                 item = self._queue.get(timeout=0.5)

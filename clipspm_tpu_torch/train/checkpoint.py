@@ -2,39 +2,48 @@
 
 Port of ``clipspm_tpu/train/checkpoint.py`` with the same logical payload:
 the model's ``state_dict`` (BatchNorm running statistics included), the
-optimizer and schedule state, the episode count, the generator states, both
-class-text tables, and ``meta`` ``{iteration, acc}``. The payload is one
-file, ``checkpoint.pt``, inside the tag's directory; a save writes a
-temporary file beside it and renames it over the old one, so an existing
-directory is never deleted.
+optimizer and schedule state, the episode count, both class-text tables,
+and ``meta`` ``{iteration, acc}`` (no generator state: the episode count
+seeds every later draw, ``train/learner.py``). The payload is one file,
+``checkpoint.pt``, inside the tag's directory; a save writes a temporary
+file beside it and renames it over the old one, so an existing directory is
+never deleted. Over ranks every rank calls :meth:`CheckpointManager.save`:
+rank 0 writes and the ranks meet at a barrier, so the file is whole on every
+rank's return; every rank restores from it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+
+from ..parallel.mesh import EpisodeMesh
 
 PAYLOAD = "checkpoint.pt"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh: Optional[EpisodeMesh] = None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
 
     def _path(self, tag: str) -> str:
         return os.path.join(self.directory, f"checkpoint_{tag}")
 
     def save(self, learner, tag: str, best_acc: float = 0.0) -> str:
         path = self._path(tag)
-        os.makedirs(path, exist_ok=True)
-        payload = learner.state_dict()
-        payload["meta"] = {"iteration": int(learner.episode),
-                           "acc": float(best_acc)}
-        tmp = os.path.join(path, PAYLOAD + ".tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(path, PAYLOAD))
+        if self.mesh is None or self.mesh.is_main:
+            os.makedirs(path, exist_ok=True)
+            payload = learner.state_dict()
+            payload["meta"] = {"iteration": int(learner.episode),
+                               "acc": float(best_acc)}
+            tmp = os.path.join(path, PAYLOAD + ".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, os.path.join(path, PAYLOAD))
+        if self.mesh is not None:
+            self.mesh.barrier()
         return path
 
     def restore(self, tag: str, learner) -> Dict[str, Any]:

@@ -13,6 +13,13 @@ contributes identical features to every episode that samples it. So:
 3. the head runs one episode at a time over table gathers, with the
    episodes' index and label arrays moved to the device once.
 
+Over ranks (the learner's ``EpisodeMesh``) every rank draws every plan;
+rank ``r`` encodes the sorted unique videos ``r, r+N, ...`` and the rows
+are all-gathered into a table replicated on every rank; then it runs
+episodes ``r, r+N, ...`` and the (loss, accuracy) pairs are all-gathered
+in episode order. Both batch sizes round up to a multiple of the ranks, as
+the JAX evaluator rounds them to its ``dp`` width.
+
 Metrics (mean accuracy, ``196*std/sqrt(n)`` CI, mean loss) and the result
 dict are the JAX evaluator's.
 """
@@ -96,8 +103,16 @@ class FeatureCachedEvaluator:
         self.learner = learner
         self.catalog = catalog
         self.sampler = sampler
-        self.encode_videos_per_step = max(1, int(encode_videos_per_step))
-        self.eval_batch = max(1, int(eval_batch))
+        self.mesh = learner.mesh
+        world = self.mesh.world if self.mesh is not None else 1
+
+        def round_up(n: int) -> int:
+            return -(-max(1, int(n)) // world) * world
+
+        # each rank's share of a step
+        self.encode_videos_per_step = round_up(encode_videos_per_step) \
+            // world
+        self.eval_batch = round_up(eval_batch) // world
         self.log = log_fn
         from ..data.native_decode import get_library
 
@@ -152,9 +167,15 @@ class FeatureCachedEvaluator:
         """
         frame_plans = _frame_plans(plans)
         vids = np.asarray(sorted(frame_plans), dtype=np.int64)
+        mesh = self.mesh
+        mine = vids[mesh.rank::mesh.world] if mesh is not None else vids
+        # a rank with no video encodes one, for the rows' shape, and keeps
+        # none of it
+        batch_vids = mine if len(mine) else vids[:1]
         B = self.encode_videos_per_step
         device = self.learner.device
-        batches = [vids[i:i + B] for i in range(0, len(vids), B)]
+        batches = [batch_vids[i:i + B]
+                   for i in range(0, len(batch_vids), B)]
 
         rows: List[torch.Tensor] = []
         stager = _cf.ThreadPoolExecutor(max_workers=1,
@@ -177,7 +198,11 @@ class FeatureCachedEvaluator:
                              f" ({time.perf_counter() - t_enc0:.1f}s)")
         finally:
             stager.shutdown(wait=False, cancel_futures=True)
-        table = torch.cat(rows, dim=0)
+        table = torch.cat(rows, dim=0)[:len(mine)]
+        if mesh is not None:
+            k = -(-len(vids) // mesh.world)
+            pad = table.new_zeros((k - len(mine),) + table.shape[1:])
+            table = mesh.all_gather(torch.cat([table, pad]))[:len(vids)]
         row_of = {int(v): i for i, v in enumerate(vids)}
         return table, row_of
 
@@ -214,12 +239,15 @@ class FeatureCachedEvaluator:
         tgt_labels = stacked(lambda p: p.target_labels)
 
         t0 = time.perf_counter()
-        losses, accs = [], []
-        n_batches = -(-n_episodes // self.eval_batch)
+        mesh = self.mesh
+        episodes = (list(mesh.shard(n_episodes)) if mesh is not None
+                    else list(range(n_episodes)))
+        loss_acc = []
+        n_batches = -(-len(episodes) // self.eval_batch)
         fetch_every = max(1, n_batches // 4)
-        for j, start in enumerate(range(0, n_episodes, self.eval_batch)):
+        for j, start in enumerate(range(0, len(episodes), self.eval_batch)):
             batch = []
-            for e in range(start, min(start + self.eval_batch, n_episodes)):
+            for e in episodes[start:start + self.eval_batch]:
                 out = model.match_features(
                     table[su_rows[e]], table[qu_rows[e]], sup_labels[e],
                     real_sup[e], real_tgt[e], learner.text_train,
@@ -228,12 +256,18 @@ class FeatureCachedEvaluator:
                     learner.model_name, out, tgt_labels[e], real_sup[e],
                     real_tgt[e], learner.tasks_per_batch, cfg=learner.cfg,
                     train=False)))
-            loss_acc = torch.stack(batch).cpu().numpy()
-            losses.extend(loss_acc[:, 0].tolist())
-            accs.extend(loss_acc[:, 1].tolist())
+            loss_acc.append(torch.stack(batch).cpu())
             if (j + 1) % fetch_every == 0 or j + 1 == n_batches:
                 self.log(f"  head fetch: {j + 1}/{n_batches} batches "
                          f"({time.perf_counter() - t0:.1f}s)")
+        loss_acc = (torch.cat(loss_acc) if loss_acc
+                    else torch.zeros((0, 2))).double()
+        if mesh is not None:
+            k = -(-n_episodes // mesh.world)
+            pad = loss_acc.new_zeros((k - len(loss_acc), 2))
+            loss_acc = mesh.all_gather(torch.cat([loss_acc, pad]).to(
+                device)).cpu()[:n_episodes]
+        losses, accs = loss_acc[:, 0].numpy(), loss_acc[:, 1].numpy()
         t_head = time.perf_counter() - t0
 
         self.log(f"feature-cached eval: {n_episodes} episodes over "
@@ -242,11 +276,9 @@ class FeatureCachedEvaluator:
                  f"({n_vids * self.sampler.seq_len / max(t_encode, 1e-9):.0f}"
                  f" frames/s), head {t_head:.1f}s "
                  f"({n_episodes / max(t_head, 1e-9):.1f} eps/s)")
-        accs_arr = np.asarray(accs)
         return {
-            "accuracy": float(accs_arr.mean() * 100.0),
-            "confidence": float(196.0 * accs_arr.std()
-                                / np.sqrt(len(accs))),
+            "accuracy": float(accs.mean() * 100.0),
+            "confidence": float(196.0 * accs.std() / np.sqrt(len(accs))),
             "loss": float(np.mean(losses)),
             "unique_videos": n_vids,
             "encode_seconds": t_encode,

@@ -5,17 +5,35 @@ Port of ``clipspm_tpu/train/learner.py`` (``TrainState``,
 ``_train_step_impl``, ``train_episodes``, ``evaluate``, ``run``). One
 optimizer step takes ``TASKS_PER_BATCH`` episodes: each real episode runs its
 forward and backward with the same weights and the gradients sum in
-``.grad`` (the JAX package sums them in a ``lax.scan``; with
-``SOLVER.ACCUM_DTYPE: bfloat16`` the sum is kept in bf16 and cast to fp32
-for the step, as there); then one optimizer step. A padding episode (past
-``n_valid``) runs no forward at all, which is what the JAX step's zero
-weight does to its gradient, BatchNorm statistics, metrics and episode
-count. Frames are transformed on the device, drawn from the learner's own
-seeded ``torch.Generator``; dropout draws from the device's default
-generator, seeded from ``MODEL.SEED``. ``evaluate`` runs ``batch_size``
-episodes a step from the test stream, one after another as the JAX
-package's ``lax.map`` does; ``run`` validates through it unless it is
-given a ``val_fn`` (the feature cache).
+``.grad`` (the JAX package sums them in a ``lax.scan``); then one optimizer
+step. A padding episode (past ``n_valid``) runs no forward at all, which is
+what the JAX step's zero weight does to its gradient, BatchNorm statistics,
+metrics and episode count.
+
+``parallel_episodes=M`` (the JAX argument; ``DEVICE.NUM_CHIPS`` ranks run
+``M = N``) splits a step into microsteps of M episodes, as the JAX step's
+``[E//M, M]`` reshape does: the M episodes of a microstep run from the same
+incoming BatchNorm statistics, which then become the mean of their M
+updated ones (an all-padding microstep is not run, so it keeps them). In
+one process the M episodes run one after another (the plain version of the
+multi-rank step); over an ``EpisodeMesh`` rank ``r`` runs episode
+``j*M + r`` of microstep ``j``, the statistics' mean is one all-reduce a
+microstep and the gradients' sum one all-reduce a step. With
+``SOLVER.ACCUM_DTYPE: bfloat16`` each microstep's gradient (the fp32 sum of
+the episodes this process ran in it) is rounded to bf16 and added into a
+bf16 sum, cast to fp32 for the step: in one process the JAX rule (M fp32
+gradients summed, then rounded); over ranks each rank rounds its one
+episode a microstep, and the ranks' bf16 sums are all-reduced in fp32.
+
+Frames are transformed on the device, drawn from the learner's
+``torch.Generator``; dropout draws from the device's default generator.
+Both are seeded before each training episode from ``MODEL.SEED`` and the
+episode's global index alone, so an episode draws the same crops, flips and
+dropout masks at every ``NUM_CHIPS``, and a restored episode count restores
+the streams. ``evaluate`` runs ``batch_size`` episodes a step from the test
+stream, one after another as the JAX package's ``lax.map`` does (over
+ranks, each its share, gathered in stream order); ``run`` validates through
+it unless it is given a ``val_fn`` (the feature cache).
 """
 
 from __future__ import annotations
@@ -31,6 +49,7 @@ from torch import nn
 
 from ..data.episode import Episode, stack_episodes, to_device
 from ..data.transforms import TransformSpec, episode_device_transform
+from ..parallel.mesh import EpisodeMesh, episode_mean_, flat_buffers
 from .losses import loss_and_acc
 from .optim import make_optimizer
 
@@ -46,9 +65,19 @@ def accum_dtype(cfg) -> Optional[torch.dtype]:
     return torch.bfloat16 if accum == "bfloat16" else None
 
 
-def _reseed(seed: int, episode: int) -> int:
-    """A generator seed from ``MODEL.SEED`` and an episode count."""
+def episode_seed(seed: int, episode: int) -> int:
+    """The generator seed of training episode ``episode`` (its global
+    index) under ``MODEL.SEED``."""
     return int(np.random.SeedSequence([seed, episode]).generate_state(1)[0])
+
+
+def batch_stats(model: nn.Module) -> List[torch.Tensor]:
+    """The BatchNorm buffers a train-mode forward updates (the JAX
+    ``batch_stats`` collection, plus torch's batch counters)."""
+    return [b for m in model.modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            and m.track_running_stats
+            for b in (m.running_mean, m.running_var, m.num_batches_tracked)]
 
 
 class Learner:
@@ -60,7 +89,18 @@ class Learner:
                  transform: Optional[TransformSpec] = None,
                  build_seconds: Optional[Dict[str, float]] = None,
                  train_source=None, test_source=None,
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print,
+                 mesh: Optional[EpisodeMesh] = None,
+                 parallel_episodes: Optional[int] = None):
+        if parallel_episodes is None:
+            parallel_episodes = mesh.world if mesh is not None else 1
+        if parallel_episodes < 1 or (mesh is not None
+                                     and parallel_episodes != mesh.world):
+            raise ValueError(
+                f"parallel_episodes={parallel_episodes}: one episode a rank "
+                f"per microstep needs {mesh.world if mesh else '>= 1'}")
+        self.mesh = mesh
+        self.parallel_episodes = int(parallel_episodes)
         self.cfg = cfg
         self.accum_dtype = accum_dtype(cfg)
         self.model_name = cfg.MODEL.NAME
@@ -78,15 +118,21 @@ class Learner:
         self.optimizer, self.scheduler = make_optimizer(
             cfg, self.model.parameters())
         self.episode = 0                       # episodes consumed
+        self.seed = int(cfg.MODEL.SEED)
         self.gen = torch.Generator(device=device)
-        self._seed(int(cfg.MODEL.SEED))
         self._copy_stream = (torch.cuda.Stream(device=device)
                              if device.type == "cuda" else None)
+        if mesh is not None:
+            # every rank starts from rank 0's replica, as DDP does
+            mesh.broadcast_([*self.model.state_dict().values(),
+                             self.text_train, self.text_test])
 
     # -- state ---------------------------------------------------------------
 
-    def _seed(self, seed: int) -> None:
-        """Seed the transform generator and the device's dropout one."""
+    def _seed_episode(self, episode: int) -> None:
+        """Seed the transform generator and the device's dropout one for
+        training episode ``episode`` (its global index)."""
+        seed = episode_seed(self.seed, episode)
         self.gen.manual_seed(seed)
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
@@ -94,28 +140,20 @@ class Learner:
         else:
             torch.manual_seed(seed)
 
-    def _dropout_rng(self) -> torch.Tensor:
-        if self.device.type == "cuda":
-            return torch.cuda.get_rng_state(self.device)
-        return torch.get_rng_state()
-
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "scheduler": self.scheduler.state_dict(),
                 "episode": self.episode,
-                "transform_rng": self.gen.get_state(),
-                "dropout_rng": self._dropout_rng(),
                 "text_train": self.text_train, "text_test": self.text_test}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore :meth:`state_dict`. A model tree that differs in keys or
         shapes raises before anything changes (``nn.Module.load_state_dict``
-        would copy the matching tensors first). Generator states saved on
-        another kind of device (a CUDA state is 16 bytes, a CPU one 5056)
-        are not restored: everything else is, and both generators are
-        reseeded from ``MODEL.SEED`` and the restored episode count, with a
-        log line saying so."""
+        would copy the matching tensors first). No generator state is
+        restored, nor saved: the episode count seeds every later draw
+        (generator states in a checkpoint of an earlier version, of any
+        device, are ignored)."""
         mine = self.model.state_dict()
         theirs = state["model"]
         bad = sorted(set(mine) ^ set(theirs)) + sorted(
@@ -124,27 +162,10 @@ class Learner:
         if bad:
             raise RuntimeError(f"model state differs in {len(bad)} keys or "
                                f"shapes, e.g. {bad[:3]}")
-        same_device = all(
-            state[key].numel() == ours.numel() for key, ours in (
-                ("transform_rng", self.gen.get_state()),
-                ("dropout_rng", self._dropout_rng())))
         self.model.load_state_dict(theirs)
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.episode = int(state["episode"])
-        if same_device:
-            self.gen.set_state(state["transform_rng"])
-            if self.device.type == "cuda":
-                torch.cuda.set_rng_state(state["dropout_rng"], self.device)
-            else:
-                torch.set_rng_state(state["dropout_rng"])
-        else:
-            seed = _reseed(int(self.cfg.MODEL.SEED), self.episode)
-            self._seed(seed)
-            self.log(f"checkpoint generator states are of another device "
-                     f"type than {self.device.type}: transform and dropout "
-                     f"generators reseeded ({seed}) from MODEL.SEED and "
-                     f"episode {self.episode}")
         self.text_train = state["text_train"].to(self.device)
         self.text_test = state["text_test"].to(self.device)
 
@@ -186,31 +207,68 @@ class Learner:
                             ep.real_support_labels, ep.real_target_labels,
                             self.tasks_per_batch, cfg=self.cfg, train=train)
 
-    def _step(self, batch: Episode, n_valid: int) -> Dict[str, torch.Tensor]:
-        """One optimizer step over the first ``n_valid`` episodes of a
-        device batch; returns the metrics as device scalars (unfetched)."""
+    def _positions(self, n: int) -> range:
+        """This process's episodes of a step of ``n``: all of them, or the
+        rank's shard."""
+        return self.mesh.shard(n) if self.mesh is not None else range(n)
+
+    def _local(self, episodes: Sequence[Optional[Episode]]) -> list:
+        """This process's episodes of a step, in order. Over ranks the other
+        ranks' places may hold None (a sharded ``EpisodeLoader`` yields
+        so)."""
+        mine = [episodes[p] for p in self._positions(len(episodes))]
+        if any(ep is None for ep in mine):
+            raise ValueError("a step's episode of this rank is missing: its "
+                             "source did not shard the step as "
+                             "rank, rank + world, ...")
+        return mine
+
+    def _step(self, batch: Optional[Episode], n_valid: int
+              ) -> Dict[str, torch.Tensor]:
+        """One optimizer step over the first ``n_valid`` episodes of the
+        step, of which ``batch`` holds this process's (the device batch of
+        :meth:`_positions`); returns the metrics of all of them as device
+        scalars (unfetched)."""
         if not self.model.training:
             self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         params = list(self.model.parameters())
+        M = self.parallel_episodes
+        stats = batch_stats(self.model) if M > 1 else []
+        positions = list(self._positions(n_valid))
         acc_grads = None
         loss_sum = torch.zeros((), device=self.device)
         acc_sum = torch.zeros((), device=self.device)
-        for e in range(n_valid):
-            loss, acc = self._episode_loss(batch[e])
-            # outside the model's autocast blocks: each op's backward runs
-            # in the dtype its forward ran in (K1's replay in fp32)
-            loss.backward()
+        for j in range(-(-n_valid // M)):
+            start = [b.clone() for b in stats]
+            sums = None
+            for k, p in enumerate(positions):
+                if p // M != j:
+                    continue
+                # each of the microstep's episodes from its incoming stats
+                for b, s0 in zip(stats, start):
+                    b.copy_(s0)
+                self._seed_episode(self.episode + p)
+                loss, acc = self._episode_loss(batch[k])
+                # outside the model's autocast blocks: each op's backward
+                # runs in the dtype its forward ran in (K1's replay in fp32)
+                loss.backward()
+                loss_sum += loss.detach()
+                acc_sum += acc
+                if stats:
+                    flat = flat_buffers(stats)
+                    sums = flat if sums is None else sums + flat
+            if stats:
+                episode_mean_(stats, sums, min(M, n_valid - j * M),
+                              self.mesh)
             if self.accum_dtype is not None:
-                # the episode's gradient, rounded, joins the bf16 sum
+                # the microstep's gradient, rounded, joins the bf16 sum
                 grads = [None if p.grad is None
                          else p.grad.to(self.accum_dtype) for p in params]
                 acc_grads = grads if acc_grads is None else [
                     a if g is None else g if a is None else a + g
                     for a, g in zip(acc_grads, grads)]
                 self.optimizer.zero_grad(set_to_none=True)
-            loss_sum += loss.detach()
-            acc_sum += acc
         if acc_grads is not None:
             for p, g in zip(params, acc_grads):
                 p.grad = None if g is None else g.to(p.dtype)
@@ -218,20 +276,27 @@ class Learner:
             if p.grad is None:
                 # the JAX chain decays every parameter, used or not
                 p.grad = torch.zeros_like(p)
+        metrics = torch.stack([loss_sum, acc_sum.to(loss_sum.dtype)])
+        if self.mesh is not None:
+            # the JAX step's sum over all E episodes
+            self.mesh.all_reduce_sum([p.grad for p in params] + [metrics])
         self.optimizer.step()
         self.scheduler.step()
         self.episode += n_valid
         denom = max(n_valid, 1)
-        return {"loss": loss_sum / denom, "acc": acc_sum / denom}
+        return {"loss": metrics[0] / denom, "acc": metrics[1] / denom}
 
-    def train_episodes(self, episodes: Sequence[Episode],
+    def train_episodes(self, episodes: Sequence[Optional[Episode]],
                        n_valid: Optional[int] = None) -> Dict[str, float]:
         """Consume a list of host episodes as one optimizer step. Only the
         first ``n_valid`` are real; the rest are padding, neither moved to
-        the device nor run. Returns loss and acc averaged over the real
-        ones."""
+        the device nor run. Over ranks the list is the whole step, where
+        each rank needs only its own episodes (``rank, rank + world, ...``;
+        the others may be None). Returns loss and acc averaged over the
+        real ones."""
         n = len(episodes) if n_valid is None else int(n_valid)
-        batch = self._ready(*self._to_device(episodes[:n])) if n else None
+        local = self._local(episodes[:n])
+        batch = self._ready(*self._to_device(local)) if local else None
         return {k: float(v) for k, v in self._step(batch, n).items()}
 
     @torch.no_grad()
@@ -251,19 +316,39 @@ class Learner:
         runs batch i; the results of batch i are fetched after batch i+1
         has been issued. A trailing partial batch runs only its real
         episodes (the JAX package pads it with duplicates and trims their
-        results). Returns mean accuracy (%), its ``196*std/sqrt(n)`` CI,
-        mean loss, and the wall and host-stall seconds."""
+        results). Over ranks ``batch_size`` is rounded up to a multiple of
+        the ranks, as the JAX package rounds it to its ``dp`` width; each
+        rank runs the episodes its source gave it (the others' places hold
+        None) and every rank gathers all (loss, accuracy) pairs in stream
+        order. Returns mean accuracy (%), its ``196*std/sqrt(n)`` CI, mean
+        loss, the per-episode ``loss_acc`` ``[n, 2]``, and the wall and
+        host-stall seconds."""
         it = iter(source or self.test_source)
         batch_size = max(1, int(batch_size))
+        world = self.mesh.world if self.mesh is not None else 1
+        batch_size += -batch_size % world
         self.model.eval()
 
         def stage(n):
-            return self._to_device([next(it) for _ in range(n)]), n
+            items = [next(it) for _ in range(n)]
+            local = [i for i, ep in enumerate(items) if ep is not None]
+            if world == 1 and len(local) < n:
+                raise ValueError("an episode of the test stream is None")
+            if not local:
+                return (None, None), []
+            return self._to_device([items[i] for i in local]), local
 
-        results: List[np.ndarray] = []
+        rows: List[np.ndarray] = []        # (position, loss, acc) of mine
         stager = _cf.ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="clipspm-eval")
         pending = None
+
+        def harvest(pending):
+            m, positions = pending
+            rows.append(np.concatenate([
+                np.asarray(positions, np.float64)[:, None],
+                m.cpu().numpy().astype(np.float64)], axis=1))
+
         stall_s, t0 = 0.0, time.perf_counter()
         try:
             done = 0
@@ -271,25 +356,27 @@ class Learner:
                 fut = stager.submit(stage, min(batch_size, n_episodes))
             while done < n_episodes:
                 t_w = time.perf_counter()
-                (batch, ready), n = fut.result()
+                (batch, ready), local = fut.result()
                 stall_s += time.perf_counter() - t_w
+                n = min(batch_size, n_episodes - done)
+                if done + n < n_episodes:
+                    fut = stager.submit(stage, min(
+                        batch_size, n_episodes - done - n))
+                if local:
+                    m = self._eval_batch(self._ready(batch, ready),
+                                         len(local))
+                    del batch
+                    if pending is not None:
+                        harvest(pending)
+                    pending = (m, [done + i for i in local])
                 done += n
-                if done < n_episodes:
-                    fut = stager.submit(stage,
-                                        min(batch_size, n_episodes - done))
-                m = self._eval_batch(self._ready(batch, ready), n)
-                del batch
-                if pending is not None:
-                    results.append(pending.cpu().numpy())
-                pending = m
             if pending is not None:
-                results.append(pending.cpu().numpy())
+                harvest(pending)
         finally:
             stager.shutdown(wait=False, cancel_futures=True)
+        mine = np.concatenate(rows) if rows else np.zeros((0, 3))
+        loss_acc = self._gather_episodes(mine, n_episodes)
         seconds = time.perf_counter() - t0
-        # float64 statistics of the fp32 values, as the JAX evaluator's
-        loss_acc = (np.concatenate(results) if results
-                    else np.zeros((0, 2))).astype(np.float64)
         accs = loss_acc[:, 1]
         self.log(f"uncached eval: {n_episodes} episodes in batches of "
                  f"{batch_size} — {seconds:.1f}s "
@@ -299,9 +386,28 @@ class Learner:
             "accuracy": float(accs.mean() * 100.0),
             "confidence": float(196.0 * accs.std() / np.sqrt(len(accs))),
             "loss": float(loss_acc[:, 0].mean()),
+            "loss_acc": loss_acc,
             "seconds": seconds,
             "host_stall_seconds": stall_s,
         }
+
+    def _gather_episodes(self, mine: np.ndarray, n: int) -> np.ndarray:
+        """``[n, 2]`` float64 (loss, accuracy) of episodes ``0..n-1`` from
+        this process's ``[k, 3]`` (position, loss, accuracy) rows, over
+        ranks gathered from all of them."""
+        if self.mesh is not None:
+            k = -(-n // self.mesh.world)
+            if len(mine) > k:
+                raise ValueError(f"{len(mine)} of {n} episodes on one rank")
+            pad = np.full((k - len(mine), 3), -1.0)
+            got = self.mesh.all_gather(torch.from_numpy(
+                np.concatenate([mine, pad])).to(self.device)).cpu().numpy()
+            mine = got[got[:, 0] >= 0]
+        order = np.argsort(mine[:, 0], kind="stable")
+        if not np.array_equal(mine[order, 0], np.arange(n)):
+            raise RuntimeError(f"the ranks evaluated episodes "
+                               f"{mine[order, 0].tolist()} of {n}")
+        return mine[order, 1:]
 
     def close(self) -> None:
         for source in (self.train_source, self.test_source):
@@ -330,7 +436,10 @@ class Learner:
         issued, except at print, val and checkpoint boundaries. The trailing
         partial batch holds the remaining real episodes; its padding (the
         JAX package pads with masked duplicates to keep its jit shape) is
-        never staged or run.
+        never staged or run. Over ranks every rank runs the loop and its
+        share of each step and of each validation; the caller gives rank 0
+        alone the log, ``metrics`` and the checkpoint writes (which every
+        rank calls, ``train/checkpoint.py``), and only rank 0 profiles.
         """
         from ..utils.metrics import host_rss_gb, profile_trace
 
@@ -352,11 +461,12 @@ class Learner:
         episode = self.episode
         # a torch.profiler trace of one optimizer step, on request
         profile_dir = os.environ.get("CLIPSPM_PROFILE_DIR")
-        profiled = False
+        profiled = self.mesh is not None and not self.mesh.is_main
         self.model.train()
 
         def stage(n):
-            return self._to_device([next(it) for _ in range(n)]), n
+            local = self._local([next(it) for _ in range(n)])
+            return (self._to_device(local) if local else (None, None)), n
 
         def harvest(pending):
             dm, ep = pending
@@ -381,7 +491,8 @@ class Learner:
                 nxt = episode + n
                 if nxt < total:
                     fut = stager.submit(stage, min(tpb, total - nxt))
-                batch = self._ready(batch, done)
+                if batch is not None:
+                    batch = self._ready(batch, done)
                 if profile_dir and not profiled and episode > 0:
                     with profile_trace(profile_dir):
                         dm = {k: float(v)

@@ -33,6 +33,7 @@ from ..models.backbones.tokenizer import get_tokenizer
 from ..models.fsar import build_model
 from ..models.text_features import (PROMPT_TEMPLATES, SINGLE_TEMPLATE,
                                     encode_class_text_tables)
+from ..parallel.mesh import EpisodeMesh
 from ..weights import random_init_
 from .learner import Learner
 
@@ -180,23 +181,48 @@ def has_restorable_checkpoint(cfg) -> bool:
         bool(ckdir) and CheckpointManager(ckdir).exists("best"))
 
 
-def check_num_chips(cfg) -> None:
-    """``DEVICE.NUM_CHIPS`` and ``DEVICE.TP`` (1 when unset): below 1
-    raises ``ValueError`` (as the JAX package's mesh does for negative
-    values; its ``or 1`` reads 0 as 1, the port refuses it), above 1 is not
-    ported."""
-    device = cfg.get("DEVICE", {}) or {}
-    n_dp, n_tp = (int(1 if device.get(k) is None else device.get(k))
-                  for k in ("NUM_CHIPS", "TP"))
+def _device_key(cfg, key: str) -> int:
+    n = (cfg.get("DEVICE", {}) or {}).get(key)
+    return int(1 if n is None else n)
+
+
+def num_chips(cfg) -> int:
+    """``DEVICE.NUM_CHIPS``, the ranks (1 when unset)."""
+    return _device_key(cfg, "NUM_CHIPS")
+
+
+def check_num_chips(cfg, device=None) -> None:
+    """``DEVICE.NUM_CHIPS`` (the ranks) and ``DEVICE.TP`` (1 when unset),
+    with the JAX ``build_device_mesh``'s errors: below 1 raises
+    ``ValueError`` (its ``or 1`` reads 0 as 1, the port refuses it); more
+    ranks than visible CUDA devices raises ``ValueError`` when ``device``
+    is ``cuda`` (on the CPU any number of ranks runs); a training run whose
+    ``TASKS_PER_BATCH`` the ranks do not divide raises ``ValueError``.
+    ``TP`` above 1 is not ported."""
+    n_dp, n_tp = num_chips(cfg), _device_key(cfg, "TP")
     if n_dp < 1 or n_tp < 1:
         raise ValueError(f"DEVICE.NUM_CHIPS={n_dp} / DEVICE.TP={n_tp} must "
                          "be >= 1")
-    for key, n, item in (("NUM_CHIPS", n_dp, "DDP"),
-                         ("TP", n_tp, "Tensor parallelism")):
-        if n > 1:
-            raise NotImplementedError(
-                f"DEVICE.{key} > 1 is not ported yet (ROADMAP.md, open item "
-                f"'{item}')")
+    if n_tp > 1:
+        raise NotImplementedError(
+            "DEVICE.TP > 1 is not ported yet (ROADMAP.md, open item "
+            "'Tensor parallelism')")
+    if n_dp == 1:
+        return
+    if device is not None and torch.device(device).type == "cuda":
+        n_avail = torch.cuda.device_count()
+        if n_dp * n_tp > n_avail:
+            raise ValueError(
+                f"DEVICE.NUM_CHIPS={n_dp} x DEVICE.TP={n_tp} needs "
+                f"{n_dp * n_tp} devices but only {n_avail} are visible — "
+                "fix the config or run on a host with enough chips")
+    tpb = int(cfg.TRAIN.TASKS_PER_BATCH)
+    if not bool(cfg.TEST.ONLY_TEST) and tpb % n_dp:
+        raise ValueError(
+            f"TRAIN.TASKS_PER_BATCH={tpb} is not divisible by "
+            f"DEVICE.NUM_CHIPS={n_dp}: the optimizer step shards "
+            f"{n_dp} concurrent episodes per microstep, so the episode "
+            "batch must split evenly across chips")
 
 
 def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
@@ -214,10 +240,14 @@ def build_catalog_and_sampler(cfg, mode: str, train: bool, queries: int
 
 
 def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
-                  device=None) -> Learner:
+                  device=None, mesh: Optional[EpisodeMesh] = None
+                  ) -> Learner:
     """Model + weights + text tables (CLIP heads only) + transform, the test
     ``EpisodeLoader`` and, for a training run, the train one, on ``device``
-    (``cuda`` unless the caller asks for the CPU).
+    (``cuda`` unless the caller asks for the CPU). At ``DEVICE.NUM_CHIPS``
+    above 1 each rank builds its own on its ``mesh`` (whose device is the
+    rank's): loaders that decode the rank's share of each stream and a
+    learner that runs its share of each step.
 
     ``allow_random_weights`` (CLI ``--allow-random-weights`` or cfg
     ``MODEL.ALLOW_RANDOM_WEIGHTS``) permits evaluating a CLIP head without
@@ -225,8 +255,15 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
     :class:`DegradedModeError`, unless a checkpoint will be restored over
     them.
     """
-    dev = resolve_device(device)
     check_num_chips(cfg)
+    if num_chips(cfg) != (mesh.world if mesh is not None else 1):
+        raise ValueError(
+            f"DEVICE.NUM_CHIPS={num_chips(cfg)} runs as that many ranks, "
+            "each building its learner on its mesh (the CLI starts them); "
+            f"this one was given {mesh.world if mesh else 'no'} mesh")
+    dev = resolve_device(mesh.device if mesh is not None else device)
+    if mesh is not None:
+        log_fn(f"device mesh: dp={mesh.world} x tp=1 ({mesh.world} devices)")
     use_amp = bool(cfg.get("USE_AMP", False))
     set_matmul_precision(use_amp)
     t0 = time.perf_counter()
@@ -242,7 +279,9 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
     def make_loader(mode: str, train: bool, queries: int) -> EpisodeLoader:
         _, sampler = build_catalog_and_sampler(cfg, mode, train, queries)
         return EpisodeLoader(sampler, num_workers=int(cfg.DATA.NUM_WORKERS),
-                             prefetch=loader_prefetch(cfg, train))
+                             prefetch=loader_prefetch(cfg, train),
+                             shard=((mesh.rank, mesh.world) if mesh
+                                    else (0, 1)))
 
     def learner(text_train, text_test):
         test_loader = make_loader("test", False,
@@ -253,7 +292,7 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
         return Learner(cfg, model, text_train, text_test, dev,
                        build_seconds=build_seconds,
                        train_source=train_loader, test_source=test_loader,
-                       log_fn=log_fn)
+                       log_fn=log_fn, mesh=mesh)
 
     gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED))
     model = random_init_(build_model(cfg), gen)

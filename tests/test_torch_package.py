@@ -101,8 +101,7 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
     (["MODEL.INT8_EVAL=true"], ValueError),         # no int8 RN50 tower
     (["TEST.ONLY_TEST=true", "TEST.TEST_MODEL_PATH=/nonexistent/ckpt"],
      FileNotFoundError),
-    (["TEST.ONLY_TEST=true", "DEVICE.NUM_CHIPS=2"],
-     NotImplementedError),                                    # DDP
+    (["DEVICE.NUM_CHIPS=3"], ValueError),   # TASKS_PER_BATCH=16 over 3
     (["DEVICE.TP=2"], NotImplementedError),          # tensor parallelism
     (["DEVICE.NUM_CHIPS=0"], ValueError),
     (["SOLVER.ACCUM_DTYPE=float16"], ValueError),
