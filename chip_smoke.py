@@ -94,7 +94,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
    feature-cached evaluator's gathered table, accuracy and CI at N=2 equal
    to N=1's); with one card the CLI's refusal of DEVICE.NUM_CHIPS=2, with
    two or more the train paths and ONLY_TEST through the CLI at
-   NUM_CHIPS=2 over NCCL against 1.
+   NUM_CHIPS=2 over NCCL against 1;
+6. tp: DEVICE.TP Megatron tensor parallelism, on phase ddp's splits and
+   against its oracle's process: clipspm-vit-train at dp=2 x tp=2, four
+   ranks sharing cuda:0 over gloo, one 4-episode step (two microsteps)
+   at fp32 with TF32 off (each episode's loss, the gathered parameters
+   and Adam moments against the same step in the oracle's process, the
+   replicated gradients across the tp ranks before the broadcast from tp
+   rank 0 and the replicated parameters bit-identical after it, 6 K1
+   launches on each rank, each rank's peak memory and the tp
+   all-reduces' seconds), and
+   clipspm RN50 uncached evaluation at dp=1 x tp=2 against one process at
+   fp32 (each episode's loss and accuracy);
+   with one card the CLI's refusal of DEVICE.TP=2, with two or more the
+   train path through the CLI at TP=2 over NCCL against 1.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -2539,10 +2552,13 @@ def _ddp_process(mesh):
 
 def _ddp_rank(mesh, roots, out):
     """One ddp process, the oracle and N=1 (a group of one) or a rank of
-    two: every train check, then the eval check, each timed."""
+    two: every train check, then the eval check, each timed; the oracle's
+    process also phase tp's one-process evaluation."""
     for name in DDP_TRAIN_PATHS:
         _ddp_train_rank(mesh, name, roots[name], out)
     _ddp_eval_rank(mesh, roots["eval"], out)
+    if mesh.world == 1:
+        _tp_eval_rank(mesh, roots["eval"], out)
 
 
 class _Timed:
@@ -2596,10 +2612,14 @@ def _ddp_train_rank(mesh, name, root, out):
     res = {"losses": {}, "launches": [], "state_vs_oracle": []}
     model.compute_dtype = None
     set_matmul_precision(False)
+    first = [next(it) for _ in range(DDP_STEPS[0])]
+    if group is None and name == TP_TRAIN_PATH:
+        _tp_reference_step(learner, first[:TP_STEP_EPISODES], losses, out)
     for step, n in enumerate(DDP_STEPS):
         start, before = learner.episode, len(losses)
         _zero_counters(counters)
-        learner.train_episodes([next(it) for _ in range(n)])
+        learner.train_episodes(first if step == 0
+                               else [next(it) for _ in range(n)])
         torch.cuda.synchronize()
         res["launches"].append(_read_counters(counters))
         for e, loss in zip(learner._positions(n), losses[before:]):
@@ -2684,14 +2704,15 @@ def _ddp_eval_rank(mesh, root, out):
         torch.save(res, os.path.join(out, f"eval-{mesh.world}.pt"))
 
 
-def _ddp_spawn(fn, world, args) -> float:
-    """``fn`` over ``world`` processes on cuda:0 over gloo; seconds."""
+def _ddp_spawn(fn, world, args, tp=1) -> float:
+    """``fn`` over ``world`` processes on cuda:0 over gloo (a grid of
+    ``tp``); seconds."""
     from clipspm_tpu_torch.parallel import mesh as pmesh
 
     _fresh_peak()
     t0 = time.perf_counter()
     pmesh.spawn(fn, world, "cuda", args=args, backend="gloo",
-                devices=["cuda:0"] * world, timeout_s=900)
+                devices=["cuda:0"] * world, timeout_s=900, tp=tp)
     return time.perf_counter() - t0
 
 
@@ -2811,13 +2832,15 @@ def ddp_eval_check(out: str) -> dict:
     return out
 
 
-def ddp_cli_refusal() -> str:
+def ddp_cli_refusal(key: str = "NUM_CHIPS") -> str:
+    """With one card: the CLI refuses ``DEVICE.<key>=2`` (the JAX
+    ``ValueError``) before it writes anything."""
     from clipspm_tpu_torch.cli.run import main as cli_main
 
     with tempfile.TemporaryDirectory() as root:
         try:
             cli_main(["--cfg", PATHS["clipspm"]["cfg"],
-                      "--allow-random-weights", "DEVICE.NUM_CHIPS=2",
+                      "--allow-random-weights", f"DEVICE.{key}=2",
                       f"CHECKPOINT.CHECKPOINT_DIR={root}"])
         except ValueError as e:
             if "needs 2 devices but only 1 are visible" not in str(e):
@@ -2826,7 +2849,7 @@ def ddp_cli_refusal() -> str:
                 raise AssertionError("the refusal wrote under the "
                                      f"checkpoint dir: {os.listdir(root)}")
             return str(e)
-    raise AssertionError("DEVICE.NUM_CHIPS=2 ran with one card visible")
+    raise AssertionError(f"DEVICE.{key}=2 ran with one card visible")
 
 
 def _train_losses(ckpt: str) -> list:
@@ -2835,10 +2858,11 @@ def _train_losses(ckpt: str) -> list:
             if r["tag"] == "loss/Train_loss[it]"]
 
 
-def ddp_nccl_cli(name: str) -> dict:
+def ddp_nccl_cli(name: str, key: str = "NUM_CHIPS") -> dict:
     """With two or more cards: the train path through the CLI at
-    NUM_CHIPS=2 over NCCL against 1 (DDP_STEPS' episodes, one step of 16
-    and a masked one), then ONLY_TEST from each run's state."""
+    ``DEVICE.<key>=2`` (NUM_CHIPS or TP) over NCCL against 1 (DDP_STEPS'
+    episodes, one step of 16 and a masked one), then ONLY_TEST from each
+    run's state."""
     from clipspm_tpu_torch.cli.run import main as cli_main
 
     run = TRAIN_PATHS[name]
@@ -2850,7 +2874,7 @@ def ddp_nccl_cli(name: str) -> dict:
             ckpt = os.path.join(root, f"ckpt{world}")
             flags = ["--cfg", spec["cfg"], "--splits-root", root,
                      "--allow-random-weights", *spec["opts"],
-                     f"DATA.DATA_DIR={root}", f"DEVICE.NUM_CHIPS={world}",
+                     f"DATA.DATA_DIR={root}", f"DEVICE.{key}={world}",
                      f"CHECKPOINT.CHECKPOINT_DIR={ckpt}"]
             t0 = time.perf_counter()
             cli_main([*flags, "TEST.ONLY_TEST=false",
@@ -2867,31 +2891,31 @@ def ddp_nccl_cli(name: str) -> dict:
             for a, b in zip(l1, l2)) or abs(
             res[1]["only_test_accuracy"] - res[2]["only_test_accuracy"]) \
             > DDP_CLI_TOL:
-        raise AssertionError(f"ddp {name} over NCCL: {res}")
-    out = {"path": name, "backend": "nccl, cuda:0 and cuda:1", **{
-        f"n{w}": r for w, r in res.items()}, "card": CARD}
-    log(json.dumps({"ddp_nccl": out}))
+        raise AssertionError(f"DEVICE.{key} {name} over NCCL: {res}")
+    out = {"path": name, "backend": "nccl, cuda:0 and cuda:1", "key": key,
+           **{f"n{w}": r for w, r in res.items()}, "card": CARD}
+    log(json.dumps({"ddp_nccl" if key == "NUM_CHIPS" else "tp_nccl": out}))
     return out
 
 
-def phase_ddp() -> dict:
+def phase_ddp(tmp: str = None) -> dict:
     """Episode parallelism: the one-card gloo half always, the NCCL half
-    where two or more cards are visible."""
-    with tempfile.TemporaryDirectory() as tmp:
-        roots = {name: os.path.join(tmp, name) for name in DDP_TRAIN_PATHS}
-        for name, root in roots.items():
-            _ddp_write_train_split(root, name)
-        # the eval check's clipspm split is clipspm-vit-train's test split
-        roots["eval"] = roots["clipspm-vit-train"]
-        res = os.path.join(tmp, "out")
-        os.makedirs(res)
-        seconds = {"oracle and N=1": _ddp_spawn(_ddp_rank, 1,
-                                                (roots, res)),
-                   "two ranks": _ddp_spawn(_ddp_rank, 2, (roots, res))}
-        log(json.dumps({"ddp_process_seconds": seconds}))
-        out = {"train": {name: ddp_train_check(name, res)
-                         for name in DDP_TRAIN_PATHS},
-               "eval": ddp_eval_check(res)}
+    where two or more cards are visible. Its splits and results stay under
+    ``tmp`` (phase tp reads them); a directory of its own without one."""
+    if tmp is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return phase_ddp(tmp)
+    roots = _ddp_roots(tmp)
+    for name in DDP_TRAIN_PATHS:
+        _ddp_write_train_split(roots[name], name)
+    res = os.path.join(tmp, "out")
+    os.makedirs(res)
+    seconds = {"oracle and N=1": _ddp_spawn(_ddp_rank, 1, (roots, res)),
+               "two ranks": _ddp_spawn(_ddp_rank, 2, (roots, res))}
+    log(json.dumps({"ddp_process_seconds": seconds}))
+    out = {"train": {name: ddp_train_check(name, res)
+                     for name in DDP_TRAIN_PATHS},
+           "eval": ddp_eval_check(res)}
     cards = torch.cuda.device_count()
     if cards < 2:
         out["cli_refusal"] = ddp_cli_refusal()
@@ -2902,6 +2926,410 @@ def phase_ddp() -> dict:
         out["nccl"] = {name: ddp_nccl_cli(name) for name in DDP_TRAIN_PATHS}
         log(f"ddp: {cards} cards visible: two ranks on cuda:0 over gloo "
             "(backend='gloo') and the NCCL half over cuda:0 and cuda:1 ran")
+    return out
+
+
+def _ddp_roots(tmp: str) -> dict:
+    roots = {name: os.path.join(tmp, name) for name in DDP_TRAIN_PATHS}
+    # the eval check's clipspm split is clipspm-vit-train's test split
+    roots["eval"] = roots["clipspm-vit-train"]
+    return roots
+
+
+# Phase tp: DEVICE.TP (parallel/tensor.py) on phase ddp's splits, against
+# its oracle's process (parallel_episodes=2, TF32 off):
+# - clipspm-vit-train at dp=2 x tp=2: four ranks sharing cuda:0 over gloo,
+#   a step of the stream's first TP_STEP_EPISODES episodes at fp32, against
+#   the same step in the oracle's process (_tp_reference_step; its losses
+#   are the oracle's first step's). Each episode's loss within TP_LOSS_TOL
+#   (relative), the gathered state after the step (parameters and Adam
+#   moments) within DDP_STATE_TOL; the replicated parameters' gradients
+#   as the tp ranks computed them, before the learner's broadcast from tp
+#   rank 0, each within TP_REPLICA_GRAD_TOL of tp rank 0's (relative L2;
+#   the tp all-reduce hands them the same bits, a backward kernel that
+#   adds with atomics rounds them apart: the count of those not
+#   bit-identical and the largest differences are logged), and after the
+#   step every replicated parameter and buffer bit-identical across the
+#   tp ranks; K1's launches 3 an episode on every rank
+#   (the tp ranks of a dp index run its episodes, the head replicated);
+#   each rank's peak memory and the seconds of the tower's tp all-reduces
+#   in the step (each synchronised on both sides);
+# - clipspm RN50 uncached evaluation at dp=1 x tp=2 (the attention pool's
+#   c_proj sharded, the conv tower replicated) against the oracle's
+#   process at fp32: TP_EVAL_EPISODES episodes, each loss within
+#   TP_EVAL_TOL (relative), each accuracy equal;
+# - with one card the CLI's refusal of DEVICE.TP=2; with two or more the
+#   train path through the CLI at TP=2 over NCCL against 1.
+TP_TRAIN_PATH = "clipspm-vit-train"
+TP_GRID = (2, 2)
+# (cut from the oracle's first step of 16: each tp all-reduce goes through
+# host memory over gloo, and the 16-episode step took 199 s, 172 s of it in
+# the tower's 5,184 all-reduces of 24 MB a rank, on an H100 80GB HBM3 at
+# 700 W; a step of 4 is two microsteps of an episode on each dp index, so
+# it holds the accumulation across microsteps)
+TP_STEP_EPISODES = 4
+TP_LOSS_TOL = 1e-6
+# (tensors whose L2 norm is above 1e-6, as tests/test_torch_ddp.py holds
+# gradients; a fault, such as a sum over the wrong group, is off by O(1))
+TP_REPLICA_GRAD_TOL = 1e-4
+TP_EVAL_EPISODES, TP_EVAL_TOL = 16, 1e-5
+
+
+def _cpu_tree(tree):
+    if torch.is_tensor(tree):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_tree(v) for v in tree)
+    return tree
+
+
+class _TPTimed:
+    """Times the tower's tp all-reduces (``parallel/tensor.py``'s, each
+    synchronised on both sides)."""
+
+    def __init__(self):
+        from clipspm_tpu_torch.parallel import tensor as ptensor
+
+        self.seconds, self.calls = 0.0, 0
+        real, timer = ptensor.dist, self
+
+        class Timed:
+            def __getattr__(self, key):
+                return getattr(real, key)
+
+            def all_reduce(self, t, *args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                real.all_reduce(t, *args, **kwargs)
+                torch.cuda.synchronize()
+                timer.seconds += time.perf_counter() - t0
+                timer.calls += 1
+
+        ptensor.dist = Timed()
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().reshape(-1)
+                          .view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def _tp_reference_step(learner, episodes, losses, out):
+    """In the oracle's process, before its first step: phase tp's
+    reference, one TP_STEP_EPISODES step at fp32 from the same initial
+    state over the stream's first episodes (each episode's loss, the state
+    and the Adam moments after it), then the learner back to its initial
+    state for the ddp steps."""
+    import copy
+
+    start = copy.deepcopy(learner.state_dict())
+    before = len(losses)
+    learner.train_episodes(episodes)
+    torch.save({"losses": losses[before:],
+                "model": _cpu_tree(learner.model.state_dict()),
+                "optimizer": _cpu_tree(learner.optimizer.state_dict())},
+               os.path.join(out, "tp-reference.pt"))
+    del losses[before:]
+    learner.load_state_dict(start)
+
+
+def _tp_train_rank(mesh, root, out):
+    """One rank of the dp=2 x tp=2 train check: the first step at fp32, the
+    gathered state against the oracle's, digests of the replicated
+    parameters, launches, peak and the tp all-reduces' seconds."""
+    from clipspm_tpu_torch import set_matmul_precision
+    from clipspm_tpu_torch.train.setup import build_learner
+
+    t_check = time.perf_counter()
+    counters, group = _ddp_process(mesh)
+    spec = PATHS[TRAIN_PATHS[TP_TRAIN_PATH]["eval_path"]]
+    cfg = _ddp_cfg(spec, root, mesh.dp_world, ("TEST.ONLY_TEST=false",
+                                               f"DEVICE.TP={mesh.tp}"))
+    learner = build_learner(cfg, log_fn=lambda *_: None, device="cuda:0",
+                            allow_random_weights=True, mesh=group)
+    losses = []
+    episode_loss = learner._episode_loss
+
+    def recorded(ep, train=True):
+        out_ = episode_loss(ep, train)
+        losses.append(float(out_[0].detach()))
+        return out_
+
+    learner._episode_loss = recorded
+    learner.model.compute_dtype = None
+    set_matmul_precision(False)
+    it = iter(learner.train_source)
+    n = TP_STEP_EPISODES
+    episodes = [next(it) for _ in range(n)]
+    # the replicated gradients as this rank computed them, before the
+    # learner's broadcast from tp rank 0
+    replicated_grads = []
+    broadcast = type(group).tp_broadcast_
+
+    def recorded(mesh_, tensors):
+        replicated_grads.append([t.detach().cpu().clone() for t in tensors])
+        broadcast(mesh_, tensors)
+
+    type(group).tp_broadcast_ = recorded
+    timer = _TPTimed()
+    _zero_counters(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner.train_episodes(episodes)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _read_counters(counters)
+    state = learner.state_dict()
+    replicas = {**{k: p for k, p in learner.model.named_parameters()
+                   if learner.shards[k] is None},
+                **dict(learner.model.named_buffers())}
+    res = {"dp_rank": mesh.dp_rank,
+           "losses": dict(zip(learner._positions(n), losses)),
+           "launches": launches, "step_seconds": step_s,
+           "tp_all_reduce_seconds": timer.seconds,
+           "tp_all_reduce_calls": timer.calls,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "replicated": {k: _digest(t) for k, t in replicas.items()},
+           "n_sharded": sum(s is not None for s in learner.shards.values())}
+    torch.save(_cpu_tree(replicas),
+               os.path.join(out, f"tp-replicas-{mesh.rank}.pt"))
+    names = [k for k, _ in learner.model.named_parameters()
+             if learner.shards[k] is None]
+    if len(replicated_grads) != 1 or len(replicated_grads[0]) < len(names):
+        raise AssertionError(f"tp: {len(replicated_grads)} broadcasts of "
+                             "the replicated gradients in one step")
+    torch.save(dict(zip(names, replicated_grads[0])),
+               os.path.join(out, f"tp-grads-{mesh.rank}.pt"))
+    ref = torch.load(os.path.join(out, "tp-reference.pt"),
+                     map_location="cuda:0", weights_only=True)
+    want, want_optim = ref["model"], ref["optimizer"]
+    worst, bad = {"model": 0.0, "moments": 0.0}, []
+
+    def held(kind, key, got, ref):
+        diff = (got.double() - ref.double()).abs()
+        worst[kind] = max(worst[kind], float(diff.max()) if diff.numel()
+                          else 0.0)
+        if got.shape != ref.shape or not torch.allclose(
+                got.double(), ref.double(), **DDP_STATE_TOL):
+            bad.append(key)
+
+    for key, v in state["model"].items():
+        held("model", key, v, want[key])
+    for i, entry in want_optim["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            held("moments", f"{i}.{k}", state["optimizer"]["state"][i][k],
+                 entry[k])
+    res["state_vs_oracle"] = {"max_abs_diff": worst, "off": bad[:5],
+                              "n_off": len(bad)}
+    learner.close()
+    res["seconds"] = time.perf_counter() - t_check
+    torch.save(res, os.path.join(out, f"tp-train-{mesh.rank}.pt"))
+
+
+def _tp_eval_rank(mesh, root, out):
+    """clipspm RN50 uncached evaluation at fp32: in the oracle's process (a
+    group of one), or a rank of dp=1 x tp=2."""
+    from clipspm_tpu_torch import set_matmul_precision
+    from clipspm_tpu_torch.train.setup import build_learner
+
+    t_check = time.perf_counter()
+    counters, group = _ddp_process(mesh)
+    spec = PATHS["clipspm"]
+    cfg = _ddp_cfg(spec, root, 1, ("TEST.ONLY_TEST=true",
+                                   f"DEVICE.TP={mesh.tp}"))
+    learner = build_learner(cfg, log_fn=lambda *_: None, device="cuda:0",
+                            allow_random_weights=True, mesh=group)
+    learner.model.compute_dtype = None
+    set_matmul_precision(False)
+    _zero_counters(counters)
+    t0 = time.perf_counter()
+    got = learner.evaluate(TP_EVAL_EPISODES,
+                           batch_size=int(cfg.TEST.EVAL_BATCH))
+    res = {"loss_acc": got["loss_acc"], "eval_seconds":
+           time.perf_counter() - t0, "launches": _read_counters(counters),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    learner.close()
+    set_matmul_precision(True)
+    res["seconds"] = time.perf_counter() - t_check
+    torch.save(res, os.path.join(out, f"tp-eval-{mesh.world}-{mesh.rank}.pt"))
+
+
+def _tp_ranks(mesh, roots, out):
+    if mesh.world == TP_GRID[0] * TP_GRID[1]:
+        _tp_train_rank(mesh, roots[TP_TRAIN_PATH], out)
+    else:
+        _tp_eval_rank(mesh, roots["eval"], out)
+
+
+def tp_train_check(out: str) -> dict:
+    world = TP_GRID[0] * TP_GRID[1]
+    oracle = torch.load(os.path.join(out, f"{TP_TRAIN_PATH}-1-0.pt"),
+                        weights_only=False)
+    ref = torch.load(os.path.join(out, "tp-reference.pt"),
+                     weights_only=False)
+    ranks = [torch.load(os.path.join(out, f"tp-train-{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    n = TP_STEP_EPISODES
+    want = dict(enumerate(ref["losses"]))
+    if len(want) != n or any(abs(v - oracle["losses"][e]) > TP_LOSS_TOL
+                             * abs(oracle["losses"][e])
+                             for e, v in want.items()):
+        first = [oracle["losses"][e] for e in range(n)]
+        raise AssertionError("tp: the reference step's losses "
+                             f"{ref['losses']} are not the oracle's first "
+                             f"step's {first}")
+    loss_err = 0.0
+    for r in ranks:
+        if sorted(r["losses"]) != list(range(r["dp_rank"], n, TP_GRID[0])):
+            raise AssertionError(f"tp: a rank of dp index {r['dp_rank']} "
+                                 f"ran episodes {sorted(r['losses'])}")
+        loss_err = max([loss_err] + [
+            abs(v - want[e]) / max(abs(want[e]), 1e-30)
+            for e, v in r["losses"].items()])
+    if not loss_err <= TP_LOSS_TOL:
+        raise AssertionError(f"tp {TP_TRAIN_PATH}: per-episode losses "
+                             f"{loss_err:.3e} from the oracle's")
+    for r in ranks:
+        if r["state_vs_oracle"]["n_off"]:
+            raise AssertionError(f"tp {TP_TRAIN_PATH}: the gathered state "
+                                 f"off the oracle's: {r['state_vs_oracle']}")
+    grad_split = {"tensors": 0, "not_bit_identical": 0, "max_abs": 0.0,
+                  "max_rel_l2": 0.0}
+    worst = {}
+    for d in range(TP_GRID[0]):
+        ranks_d = range(d * TP_GRID[1], (d + 1) * TP_GRID[1])
+        row = [ranks[g] for g in ranks_d]
+        grads = [torch.load(os.path.join(out, f"tp-grads-{g}.pt"),
+                            weights_only=True) for g in ranks_d]
+        for key, g0 in grads[0].items():
+            grad_split["tensors"] += 1
+            for g in grads[1:]:
+                diff = g[key].double() - g0.double()
+                stat = (float(diff.abs().max()),
+                        float(diff.norm() / max(float(g0.double().norm()),
+                                                1e-30)))
+                grad_split["not_bit_identical"] += not torch.equal(g[key],
+                                                                   g0)
+                grad_split["max_abs"] = max(grad_split["max_abs"], stat[0])
+                if float(g0.norm()) > 1e-6:
+                    grad_split["max_rel_l2"] = max(grad_split["max_rel_l2"],
+                                                   stat[1])
+                    worst[key] = max(worst.get(key, 0.0), stat[1])
+        off = sorted({k for r in row for k, h in r["replicated"].items()
+                      if h != row[0]["replicated"][k]})
+        if off:
+            held = [torch.load(os.path.join(out, f"tp-replicas-{g}.pt"),
+                               weights_only=True) for g in ranks_d]
+            diff = {k: max(float((h[k].double() - held[0][k].double())
+                                 .abs().max()) for h in held[1:])
+                    for k in off}
+            raise AssertionError(
+                f"tp: {len(off)} replicated tensors differ across the tp "
+                f"ranks of dp index {d} (largest differences): "
+                f"{dict(sorted(diff.items(), key=lambda i: -i[1])[:8])}")
+    grad_split["worst_rel_l2"] = dict(sorted(
+        worst.items(), key=lambda i: -i[1])[:5])
+    grad_split["tol_rel_l2"] = TP_REPLICA_GRAD_TOL
+    if not grad_split["max_rel_l2"] <= TP_REPLICA_GRAD_TOL:
+        raise AssertionError("tp: the replicated gradients before the "
+                             f"broadcast differ across the tp ranks: "
+                             f"{grad_split}")
+    per = TRAIN_PATHS[TP_TRAIN_PATH]["launches"]["K1"] * n // TP_GRID[0]
+    launches = [r["launches"]["K1"] for r in ranks]
+    if launches != [per] * world or any(r["launches"]["K2"]
+                                        for r in ranks):
+        raise AssertionError(f"tp: K1 launched {launches} times on the "
+                             f"ranks, expected {per} on each")
+    res = {"path": TP_TRAIN_PATH,
+           "grid": f"dp={TP_GRID[0]} x tp={TP_GRID[1]}",
+           "backend": f"gloo, {world} ranks on cuda:0",
+           "episodes": n, "loss_max_rel_diff": loss_err,
+           "loss_tol": TP_LOSS_TOL,
+           "state_max_abs_diff": [r["state_vs_oracle"]["max_abs_diff"]
+                                  for r in ranks],
+           "state_tol": DDP_STATE_TOL,
+           "replicated_tensors": len(ranks[0]["replicated"]),
+           "replicated_grads_before_broadcast": grad_split,
+           "sharded_parameters": ranks[0]["n_sharded"],
+           "k1_launches_each_rank": launches,
+           "fp32_step_seconds": [r["step_seconds"] for r in ranks],
+           "tp_all_reduce_seconds_step": [r["tp_all_reduce_seconds"]
+                                          for r in ranks],
+           "tp_all_reduce_calls_step": ranks[0]["tp_all_reduce_calls"],
+           "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+           "oracle_peak_memory_bytes": oracle["peak_memory_bytes"],
+           "check_seconds": [r["seconds"] for r in ranks], "card": CARD}
+    log(json.dumps({"tp_train": res}))
+    return res
+
+
+def tp_eval_check(out: str) -> dict:
+    import numpy as np
+
+    one = torch.load(os.path.join(out, "tp-eval-1-0.pt"), weights_only=False)
+    ranks = [torch.load(os.path.join(out, f"tp-eval-{TP_GRID[1]}-{r}.pt"),
+                        weights_only=False) for r in range(TP_GRID[1])]
+    want = one["loss_acc"]
+    errs = []
+    for r in ranks:
+        got = r["loss_acc"]
+        if got.shape != (TP_EVAL_EPISODES, 2) or want.shape != got.shape \
+                or not np.array_equal(got[:, 1], want[:, 1]):
+            raise AssertionError(f"tp eval: accuracies at tp={TP_GRID[1]} "
+                                 f"{got[:, 1]} against {want[:, 1]}")
+        errs.append(float(np.max(np.abs(got[:, 0] - want[:, 0])
+                                 / np.maximum(np.abs(want[:, 0]), 1e-30))))
+    if not max(errs) <= TP_EVAL_TOL:
+        raise AssertionError(f"tp eval: per-episode losses {errs} from the "
+                             "one-process run's")
+    per = PATHS["clipspm"]["launches"]["K1"] * TP_EVAL_EPISODES
+    launches = [r["launches"]["K1"] for r in ranks]
+    if one["launches"]["K1"] != per or launches != [per] * TP_GRID[1]:
+        raise AssertionError(f"tp eval: K1 launched {launches} on the ranks "
+                             f"and {one['launches']['K1']} in one process; "
+                             f"expected {per}")
+    res = {"path": "clipspm (RN50), uncached, fp32",
+           "grid": f"dp=1 x tp={TP_GRID[1]}",
+           "backend": f"gloo, {TP_GRID[1]} ranks on cuda:0",
+           "episodes": TP_EVAL_EPISODES, "loss_max_rel_diff": errs,
+           "loss_tol": TP_EVAL_TOL, "accuracies_equal": True,
+           "k1_launches": {"one_process": one["launches"]["K1"],
+                           "each_rank": launches},
+           "eval_seconds": {"one_process": one["eval_seconds"],
+                            "ranks": [r["eval_seconds"] for r in ranks]},
+           "peak_memory_bytes": {"one_process": one["peak_memory_bytes"],
+                                 "ranks": [r["peak_memory_bytes"]
+                                           for r in ranks]},
+           "card": CARD}
+    log(json.dumps({"tp_eval": res}))
+    return res
+
+
+def phase_tp(tmp: str) -> dict:
+    """Tensor parallelism on phase ddp's splits and against its oracle's
+    results under ``tmp`` (run phase ddp on it first): the train grid's
+    four ranks, then the evaluation's two."""
+    roots, res = _ddp_roots(tmp), os.path.join(tmp, "out")
+    seconds = {f"{TP_GRID[0]}x{TP_GRID[1]} train": _ddp_spawn(
+        _tp_ranks, TP_GRID[0] * TP_GRID[1], (roots, res), tp=TP_GRID[1]),
+        f"1x{TP_GRID[1]} eval": _ddp_spawn(
+            _tp_ranks, TP_GRID[1], (roots, res), tp=TP_GRID[1])}
+    log(json.dumps({"tp_process_seconds": seconds}))
+    out = {"train": tp_train_check(res), "eval": tp_eval_check(res)}
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        out["cli_refusal"] = ddp_cli_refusal("TP")
+        log(f"tp: {cards} card visible: {TP_GRID[0] * TP_GRID[1]} and "
+            f"{TP_GRID[1]} ranks on cuda:0 over gloo ran; the NCCL half "
+            "needs two cards and did not run")
+    else:
+        out["nccl"] = ddp_nccl_cli(TP_TRAIN_PATH, key="TP")
+        log(f"tp: {cards} cards visible: the ranks on cuda:0 over gloo and "
+            "the NCCL half over cuda:0 and cuda:1 ran")
     return out
 
 
@@ -2929,7 +3357,9 @@ def main() -> int:
               for name in TRAIN_PATHS}
     remats = {name: timed(name, phase_remat_path, name)
               for name in REMAT_PATHS}
-    ddp = timed("ddp", phase_ddp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp = timed("ddp", phase_ddp, tmp)
+        tp = timed("tp", phase_tp, tmp)
     log(json.dumps({"phase_seconds": seconds}))
     for k, entry in (("K1", k1), ("K2", k2)):
         entry["launches_by_path"] = {
@@ -2944,7 +3374,11 @@ def main() -> int:
                for name, r in ddp["train"].items()},
             **{f"ddp clipspm {stage} (N=1; rank 0 of 2)":
                ddp["eval"]["k1_launches_n1_and_rank0"][stage]
-               for stage in ("uncached", "cached") if k == "K1"}}
+               for stage in ("uncached", "cached") if k == "K1"},
+            **({f"tp {TP_TRAIN_PATH} (each of 4 ranks, a step of "
+                f"{TP_STEP_EPISODES})": tp["train"]["k1_launches_each_rank"],
+                "tp clipspm RN50 uncached (one process; each of 2 ranks)":
+                tp["eval"]["k1_launches"]} if k == "K1" else {})}
     k1["launches"] = evals["clipspm"]["launches"]["K1"]
     k2["launches"] = evals["ta2n"]["launches"]["K2"]
     log(json.dumps({"kernels": [k1, k2]}))

@@ -24,15 +24,15 @@ CLIP towers' switches ``MODEL.FAST_SOFTMAX``, ``MODEL.BF16_NORMS`` and
 ``MODEL.INT8_EVAL`` and every ``MODEL.TRAIN_REMAT_POLICY`` of the JAX
 package.
 
-``DEVICE.NUM_CHIPS=N`` above 1 runs N ranks, rank ``r`` on ``cuda:r`` (or
-on the CPU with ``--device cpu``): the CLI checks the config, then starts
-them (``torch.multiprocessing`` on a free local port), or joins the group
-of a ``torchrun`` that started it; each rank trains and evaluates its share
-of the episodes (``parallel/mesh.py``), rank 0 alone prints and writes, and
-a rank that raises ends the run with its error. What the port does not
-carry yet (``DEVICE.TP`` above 1) raises ``NotImplementedError`` naming its
-ROADMAP item, and what the JAX package refuses raises its ``ValueError``,
-before anything is built.
+``DEVICE.NUM_CHIPS=N`` and ``DEVICE.TP=T`` run a grid of N x T ranks,
+global rank ``g`` on ``cuda:g`` (or on the CPU with ``--device cpu``) at
+``(dp, tp) = (g // T, g % T)``: the CLI checks the config, then starts them
+(``torch.multiprocessing`` on a free local port), or joins the group of a
+``torchrun`` that started N x T ranks; each dp index trains and evaluates
+its share of the episodes (``parallel/mesh.py``), its T ranks through the
+tower sharded over them (``parallel/tensor.py``), rank 0 alone prints and
+writes, and a rank that raises ends the run with its error. What the JAX
+package refuses raises its ``ValueError`` before anything is built.
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ def main(argv=None) -> dict:
     from clipspm_tpu_torch import resolve_device
     from clipspm_tpu_torch.parallel import mesh as pmesh
     from clipspm_tpu_torch.train.checkpoint import payload_file
-    from clipspm_tpu_torch.train.setup import num_chips
+    from clipspm_tpu_torch.train.setup import num_chips, num_tp
 
     cfg = _load(args)
     device = resolve_device(args.device)
@@ -105,17 +105,18 @@ def main(argv=None) -> dict:
                 f"TEST.TEST_MODEL_PATH={test_model_path!r} does not exist — "
                 "can't test")
         payload_file(os.path.abspath(test_model_path))
-    n = num_chips(cfg)
-    if n == 1:
+    tp = num_tp(cfg)
+    world = num_chips(cfg) * tp
+    if world == 1:
         return _run(args, cfg, device)
     if pmesh.torchrun_env():
-        mesh = pmesh.join_torchrun(device, n)
+        mesh = pmesh.join_torchrun(device, world, tp)
         try:
             return _run(args, cfg, mesh.device, mesh)
         finally:
             pmesh.close()
     # the ranks parse the same arguments (a config does not pickle)
-    return pmesh.spawn(_rank, n, device, args=(argv,))
+    return pmesh.spawn(_rank, world, device, args=(argv,), tp=tp)
 
 
 def _load(args):

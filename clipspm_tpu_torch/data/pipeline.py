@@ -15,10 +15,15 @@ import threading
 from typing import Iterator, List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from .episode import Episode
 from .sampler import EpisodePlan, EpisodeSampler
 from .splits import SplitCatalog
+
+# seconds ``EpisodeLoader.close`` waits for its producer over a group
+CLOSE_WAIT_S = 60
 
 
 def _decode_image(path: str) -> np.ndarray:
@@ -89,37 +94,39 @@ def decode_plan(plan: EpisodePlan, catalog: SplitCatalog,
     )
 
 
-def _frames_present(plan: EpisodePlan, catalog: SplitCatalog) -> bool:
-    """Whether every frame file of ``plan`` exists."""
-    return all(os.path.isfile(p) for which in ("support", "target")
-               for clip in plan.frame_paths(catalog, which) for p in clip)
-
-
 class EpisodeLoader:
     """Prefetching episode stream over a seeded sampler.
 
     One producer thread plans and decodes episodes into a bounded queue (the
     back-pressure); iterating yields host ``Episode``s. A bad episode
-    (missing or corrupt frames, a sampler error) is dropped and resampled;
-    after 100 failures in a row the error is surfaced to the consumer and
-    kept, so every later iterator raises it too. ``close()`` ends iteration.
+    (missing or corrupt frames, a sampler error) is dropped and the next
+    plan takes its place, as the JAX loader resamples; after 100 failures
+    in a row the error is surfaced to the consumer and kept, so every later
+    iterator raises it too. ``close()`` ends iteration.
 
     ``shard=(rank, world)``: every rank plans the whole stream (the same
     seed, the same plans) and decodes only its share, slots ``rank, rank +
-    world, ...``, yielding None in the other ranks' places. Each rank drops
-    a plan with a missing frame file before it decodes anything, so all
-    ranks drop the same plans and keep the stream one rank alone would
-    have; a plan of this rank that then fails to decode (a corrupt frame)
-    cannot be replaced without the others, so the stream ends with that
-    error on this rank, which stops the run.
+    world, ...``, yielding None in the other ranks' places. ``group`` (a
+    process group over every rank of the grid, for this loader's producer
+    alone; the tp ranks of a dp index share its ``rank``) carries one
+    decode-ok flag a slot: the producers run the stream in rounds of
+    ``world`` slots, and when slot s's plan fails every rank drops it, the
+    next plan takes slot s and every later slot of the round shifts by one
+    plan (their owners decode again), which is the stream one JAX producer
+    makes, at every ``world``. A rank whose ``close()`` has been called
+    says so in its next round's flags, and every producer ends there.
     """
 
     def __init__(self, sampler: EpisodeSampler, num_workers: int = 8,
                  prefetch: int = 4, use_native: bool = True,
-                 shard: tuple = (0, 1)):
+                 shard: tuple = (0, 1), group=None):
         self.sampler = sampler
         self.catalog = sampler.catalog
         self.rank, self.world = (int(x) for x in shard)
+        if self.world > 1 and group is None:
+            raise ValueError("a sharded EpisodeLoader needs the group its "
+                             "ranks exchange their decode flags over")
+        self.group = group
         # a frame geometry is pinned only when the native batch decoder
         # loads; otherwise decode goes per frame through PIL in the pool
         if use_native:
@@ -138,60 +145,96 @@ class EpisodeLoader:
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
-    def _decode(self, plan: EpisodePlan) -> Episode:
-        return decode_plan(plan, self.catalog, self._pool,
-                           frame_size=self.frame_size,
-                           native_threads=self.native_threads)
+    def _decode(self, plan) -> tuple:
+        """``(episode, None)``, or ``(None, error)`` for a plan that failed
+        (a sampler error stands in the plan's place)."""
+        if isinstance(plan, Exception):
+            return None, plan
+        try:
+            return decode_plan(plan, self.catalog, self._pool,
+                               frame_size=self.frame_size,
+                               native_threads=self.native_threads), None
+        except Exception as exc:  # noqa: BLE001 - dropped, bounded
+            return None, exc
 
-    def _next_item(self, slot: int):
-        """The item of stream slot ``slot``: an Episode, None (another
-        rank's), or the terminal error."""
-        failures = 0
-        while True:
-            try:
-                plan = self.sampler.sample()
-                if self.world == 1:
-                    return self._decode(plan)
-                if _frames_present(plan, self.catalog):
-                    if slot % self.world != self.rank:
-                        return None
-                    try:
-                        return self._decode(plan)
-                    except Exception as exc:  # noqa: BLE001 - ends stream
-                        err = RuntimeError(
-                            f"episode {slot} failed to decode on rank "
-                            f"{self.rank} of {self.world}, which cannot "
-                            f"replace it alone: {exc!r}")
-                        err.__cause__ = exc
-                        return err
-                exc = FileNotFoundError(f"episode {slot}: a frame file is "
-                                        "missing")
-            except Exception as e:  # noqa: BLE001 - resample, bounded
-                exc = e
-            failures += 1
-            if failures >= 100:
-                # a raise here would end the producer silently and leave
-                # the consumer blocked on the queue: hand the error over
-                err = RuntimeError("episode pipeline failed 100 times in a "
-                                   f"row; last error: {exc!r}")
-                err.__cause__ = exc
-                return err
+    def _sample(self):
+        try:
+            return self.sampler.sample()
+        except Exception as exc:  # noqa: BLE001 - dropped, bounded
+            return exc
+
+    def _flags(self, failed: bool, open_from: int) -> Optional[list]:
+        """Whether each slot of the round failed on any rank (this rank's
+        own when it is at or past ``open_from``), or None when a rank is
+        closing."""
+        t = torch.zeros(self.world + 1, dtype=torch.int64)
+        if self.rank >= open_from:
+            t[self.rank] = int(failed)
+        t[self.world] = int(self._stop.is_set())
+        if self.group is not None:
+            dist.all_reduce(t, group=self.group)
+        if t[self.world]:
+            return None
+        return [bool(f) for f in t[:self.world].tolist()]
+
+    def _round(self, plans: list, failures: int) -> Optional[tuple]:
+        """One round of ``world`` slots from the plans ahead (``plans``,
+        consumed in place; more are sampled as needed): ``(items,
+        failures)``, where the last item is the terminal error when the
+        budget ran out; None when a rank is closing."""
+        items: list = []
+        while len(items) < self.world:
+            open_from = len(items)
+            while len(plans) < self.world - open_from:
+                plans.append(self._sample())
+            mine = self.rank - open_from
+            episode, exc = (self._decode(plans[mine]) if mine >= 0
+                            and not self._stop.is_set() else (None, None))
+            flags = self._flags(exc is not None, open_from)
+            if flags is None:
+                return None
+            for slot in range(open_from, self.world):
+                plan = plans.pop(0)
+                if not flags[slot]:
+                    failures = 0
+                    items.append(episode if slot == self.rank else None)
+                    continue
+                failures += 1
+                if failures >= 100:
+                    # a raise here would end the producer silently and
+                    # leave the consumer blocked on the queue: hand the
+                    # error over
+                    last = (exc if slot == self.rank else plan
+                            if isinstance(plan, Exception) else RuntimeError(
+                                f"slot {slot}'s plan failed on its rank"))
+                    err = RuntimeError("episode pipeline failed 100 times "
+                                       f"in a row; last error: {last!r}")
+                    err.__cause__ = last
+                    items.append(err)
+                    return items, failures
+                # the later slots of the round take the next plans
+                break
+        return items, failures
 
     def _producer(self):
-        slot = 0
-        while not self._stop.is_set():
-            item = self._next_item(slot)
-            slot += 1
-            if isinstance(item, Exception):
-                self._error = item
-            while not self._stop.is_set():
-                try:
-                    self._queue.put(item, timeout=0.5)
-                    break
-                except queue.Full:
-                    continue
-            if isinstance(item, Exception):
+        plans: list = []
+        failures = 0
+        while True:
+            got = self._round(plans, failures)
+            if got is None:
                 return
+            items, failures = got
+            for item in items:
+                if isinstance(item, Exception):
+                    self._error = item
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+                if isinstance(item, Exception):
+                    return
 
     def __iter__(self) -> Iterator[Optional[Episode]]:
         while True:
@@ -208,5 +251,12 @@ class EpisodeLoader:
             yield item
 
     def close(self):
+        """End the stream. Over a group every rank's producer ends at the
+        round in which the first of them sees a ``close()``, so every rank
+        closes its loaders in the same order; this waits for its own (at
+        most ``CLOSE_WAIT_S``: a rank that ends on an error must not wait
+        on peers that never close)."""
         self._stop.set()
+        if self.group is not None:
+            self._thread.join(timeout=CLOSE_WAIT_S)
         self._pool.shutdown(wait=False, cancel_futures=True)

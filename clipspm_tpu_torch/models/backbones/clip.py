@@ -198,12 +198,15 @@ class Bottleneck(nn.Module):
 class AttentionPool2d(nn.Module):
     """Multi-head attention pooling: the mean token is prepended, the
     positional embedding added, and token 0 alone queries (``spatial=False``).
-    """
+    ``tp`` (``parallel/tensor.py:TPContext``, set by ``shard_model_``):
+    ``c_proj`` is row-parallel over the attention output's features, which
+    every tp rank computes whole."""
 
     def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int,
                  output_dim: int):
         super().__init__()
         self.num_heads = num_heads
+        self.tp = None
         self.positional_embedding = nn.Parameter(
             torch.zeros(spacial_dim ** 2 + 1, embed_dim))
         self.k_proj = nn.Linear(embed_dim, embed_dim)
@@ -226,7 +229,13 @@ class AttentionPool2d(nn.Module):
         attn = fp32_or_wider(torch.matmul(q, k.transpose(-1, -2))) * hd ** -0.5
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(N, 1, C)
-        return self.c_proj(out)[:, 0]
+        if self.tp is None:
+            return self.c_proj(out)[:, 0]
+        width = C // self.tp.world
+        out = self.tp.copy_to(out)[..., self.tp.rank * width:
+                                   (self.tp.rank + 1) * width]
+        return _row_dense(out, self.c_proj.weight, self.c_proj.bias, False,
+                          self.tp)[:, 0]
 
 
 class ModifiedResNet(nn.Module):
@@ -278,6 +287,20 @@ def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return int8_linear(x, weight, bias) if int8 else F.linear(x, weight, bias)
 
 
+def _row_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               int8: bool, tp) -> torch.Tensor:
+    """``_dense`` of a row-parallel layer: ``x`` and ``weight`` hold this tp
+    rank's share of the input features. The partial products are summed
+    over the tp ranks in fp32 (int32 under int8) and the bias added once,
+    after the sum, then cast to the product's dtype."""
+    if tp is None:
+        return _dense(x, weight, bias, int8)
+    if int8:
+        return int8_linear(x, weight, bias, tp=tp)
+    part = F.linear(x, weight)
+    return (tp.reduce_from(part) + bias).to(part.dtype)
+
+
 class _Attention(nn.Module):
     """Fused-in-projection multi-head self-attention with
     ``nn.MultiheadAttention``'s parameter names.
@@ -288,12 +311,18 @@ class _Attention(nn.Module):
     probabilities (``fast_softmax``, or the ``attn_probs`` tag of the
     ``attn`` remat policy): fp32 scores times ``hd**-0.5``, the
     probabilities (``tags.attn_probs``, cast to v's dtype), then
-    ``tags.attn_out``, ``probs @ v``."""
+    ``tags.attn_out``, ``probs @ v``.
+
+    ``tp`` (``parallel/tensor.py:TPContext``, set by ``shard_model_``):
+    this rank holds the q, k and v rows of ``n_head / tp`` heads of
+    ``in_proj`` (column-parallel) and their columns of ``out_proj``
+    (row-parallel), and attends over those heads alone."""
 
     def __init__(self, d_model: int, n_head: int, causal: bool,
                  fast_softmax: bool = False):
         super().__init__()
         self.n_head, self.causal = n_head, causal
+        self.tp = None
         self.fast_softmax = fast_softmax
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
@@ -302,8 +331,12 @@ class _Attention(nn.Module):
     def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         B, L, D = x.shape
         hd = D // self.n_head
+        tp = self.tp
+        heads = self.n_head // (1 if tp is None else tp.world)
+        if tp is not None:
+            x = tp.copy_to(x)
         qkv = _dense(x, self.in_proj_weight, self.in_proj_bias, int8)
-        q, k, v = (t.reshape(B, L, self.n_head, hd).transpose(1, 2)
+        q, k, v = (t.reshape(B, L, heads, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         if self.causal:
             attn = fp32_or_wider(torch.matmul(q, k.transpose(-1, -2))) \
@@ -321,21 +354,24 @@ class _Attention(nn.Module):
                 out = tags.attn_out(probs, v)
         else:
             out = F.scaled_dot_product_attention(q, k, v)
-        return _dense(out.transpose(1, 2).reshape(B, L, D),
-                      self.out_proj.weight, self.out_proj.bias, int8)
+        return _row_dense(out.transpose(1, 2).reshape(B, L, heads * hd),
+                          self.out_proj.weight, self.out_proj.bias, int8, tp)
 
 
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN attention + QuickGELU MLP. ``int8_eval``: the four
     projections in dynamic int8 outside training (``ops/quant.py``; the
     same parameters). The gelu is ``tags.mlp_gelu`` where the ``mlp`` remat
-    policy names its output."""
+    policy names its output. ``tp`` (``parallel/tensor.py:TPContext``, set
+    by ``shard_model_``): ``c_fc`` column-parallel and ``c_proj``
+    row-parallel, the gelu on this rank's slice of the hidden features."""
 
     def __init__(self, d_model: int, n_head: int, causal: bool = False,
                  fast_softmax: bool = False, fp32_norms: bool = True,
                  int8_eval: bool = False):
         super().__init__()
         self.int8_eval = int8_eval
+        self.tp = None
         self.ln_1 = FP32LayerNorm(d_model, eps=1e-5, fp32=fp32_norms)
         self.attn = _Attention(d_model, n_head, causal, fast_softmax)
         self.ln_2 = FP32LayerNorm(d_model, eps=1e-5, fp32=fp32_norms)
@@ -346,9 +382,12 @@ class ResidualAttentionBlock(nn.Module):
         int8 = self.int8_eval and not self.training
         x = x + self.attn(self.ln_1(x), int8)
         c_fc, c_proj = self.mlp.c_fc, self.mlp.c_proj
-        h = _dense(self.ln_2(x), c_fc.weight, c_fc.bias, int8)
+        h = self.ln_2(x)
+        if self.tp is not None:
+            h = self.tp.copy_to(h)
+        h = _dense(h, c_fc.weight, c_fc.bias, int8)
         h = tags.mlp_gelu(h) if "mlp_gelu" in tags.active() else quick_gelu(h)
-        return x + _dense(h, c_proj.weight, c_proj.bias, int8)
+        return x + _row_dense(h, c_proj.weight, c_proj.bias, int8, self.tp)
 
 
 class TransformerStack(nn.Module):

@@ -32,13 +32,18 @@ import torch
 launches = 0
 
 
-def quantize_rows(x: torch.Tensor) -> tuple:
+def quantize_rows(x: torch.Tensor, tp=None) -> tuple:
     """Codes and scales of each row of fp32 ``x [..., K]``: ``(int8 [...,
     K], fp32 [..., 1])``. The scale is ``max|x|`` times the fp32 reciprocal
     of 127: XLA compiles the JAX package's division by the constant so,
     and so does PyTorch's CUDA division by a scalar, where the CPU's
-    divides; one rule keeps the card's codes equal to the CPU's."""
-    s = torch.clamp_min(x.abs().amax(-1, keepdim=True) * (1.0 / 127.0), 1e-8)
+    divides; one rule keeps the card's codes equal to the CPU's. With
+    ``tp`` (a ``parallel/tensor.py:TPContext``) the rows are shards of
+    rows cut over the tp ranks, and ``max|x|`` is the whole row's."""
+    amax = x.abs().amax(-1, keepdim=True)
+    if tp is not None:
+        tp.max_(amax)
+    s = torch.clamp_min(amax * (1.0 / 127.0), 1e-8)
     return torch.round(x / s).to(torch.int8), s
 
 
@@ -60,16 +65,21 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_linear(x: torch.Tensor, weight: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """``F.linear(x, weight, bias)`` with dynamic int8 quantisation: ``x
     [..., K]``, ``weight [M, K]``, ``bias [M]``; returns ``[..., M]`` in
     ``x.dtype``. Quantises from the fp32 view of ``x`` with autocast off,
-    as the JAX package does."""
+    as the JAX package does. With ``tp`` the layer is row-parallel: ``x``
+    and ``weight`` hold this rank's share of K, the scales are taken over
+    the whole of K and the int32 sums added over the tp ranks before the
+    rescale, so each rank computes what one rank computes from the whole."""
     K = x.shape[-1]
     with torch.autocast(x.device.type, enabled=False):
-        xq, sx = quantize_rows(x.float())
-        wq, sw = quantize_rows(weight.float())
+        xq, sx = quantize_rows(x.float(), tp)
+        wq, sw = quantize_rows(weight.float(), tp)
         acc = int8_mm(xq.reshape(-1, K), wq)
+        if tp is not None:
+            tp.sum_(acc)
         y = acc.float() * sx.reshape(-1, 1) * sw.reshape(1, -1)
         if bias is not None:
             y = y + bias.float()

@@ -1,18 +1,22 @@
-"""Episode parallelism over ranks: the process group, the episode shard and
-the collectives of the episode-parallel train step and evaluators.
+"""The rank grid: the process group, the episode shard and the collectives
+of the episode-parallel train step and evaluators.
 
-Port of the ``dp`` axis of ``clipspm_tpu/parallel/mesh.py``. The JAX
-package shards the episode axis over a device mesh and XLA inserts the
-gradient psum; here ``DEVICE.NUM_CHIPS`` ranks each run in a process of
-their own, one device each, and the trainer and the evaluators call the
-collectives below explicitly:
+Port of ``clipspm_tpu/parallel/mesh.py``'s ``(dp, tp)`` mesh. The JAX
+package shards the episode axis over ``dp`` and the tower's projections
+over ``tp`` and XLA inserts the collectives; here ``DEVICE.NUM_CHIPS x
+DEVICE.TP`` ranks each run in a process of their own, one device each, and
+the trainer, the evaluators and the tower call the collectives explicitly.
+Rank ``g`` sits at ``(dp, tp) = (g // TP, g % TP)``, as device ``dp*TP +
+tp`` of the JAX mesh, so a tp group is consecutive ranks. The ranks of one
+dp index run the same episodes; the tp collectives are
+``parallel/tensor.py``'s. Over the dp group:
 
-- the episode shard: rank ``r`` of ``N`` takes episodes ``r, r+N, ...`` of
-  a stream or a step, the JAX ``[E//M, M]`` reshape of a step
+- the episode shard: dp index ``d`` of ``N`` takes episodes ``d, d+N, ...``
+  of a stream or a step, the JAX ``[E//M, M]`` reshape of a step
   (``clipspm_tpu/train/learner.py:254``) with ``M = N``;
-- :meth:`EpisodeMesh.all_reduce_sum`: the gradients' *sum* over the ranks
-  (the JAX step sums over all E episodes; ``DistributedDataParallel`` would
-  average them), flattened into buckets;
+- :meth:`EpisodeMesh.all_reduce_sum`: the gradients' *sum* over the dp
+  indices (the JAX step sums over all E episodes; ``DistributedDataParallel``
+  would average them), flattened into buckets;
 - :func:`episode_mean_`: BatchNorm buffers set to the mean of the
   microstep's updated ones (``learner.py:268-281``);
 - :meth:`EpisodeMesh.all_gather`: per-episode results in global episode
@@ -31,7 +35,7 @@ import datetime
 import os
 import socket
 import tempfile
-from typing import Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -47,18 +51,37 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 
 @dataclasses.dataclass(frozen=True)
 class EpisodeMesh:
-    """This process's place among the ranks of an initialised group."""
+    """This process's place on the ``dp x tp`` grid of an initialised
+    group: global ``rank`` of ``world``, ``tp`` ranks to a dp index, and
+    the process groups of its dp column and its tp row (None at ``tp=1``:
+    the dp group is then the whole group)."""
     rank: int
     world: int
     device: torch.device
+    tp: int = 1
+    dp_group: Any = None
+    tp_group: Any = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def dp_world(self) -> int:
+        return self.world // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
     def shard(self, n: int) -> range:
-        """This rank's episodes of ``n``: ``rank, rank + world, ...``."""
-        return range(self.rank, n, self.world)
+        """This dp index's episodes of ``n``: ``dp_rank, dp_rank +
+        dp_world, ...``."""
+        return range(self.dp_rank, n, self.dp_world)
 
     def _buckets(self, tensors: Sequence[torch.Tensor],
                  collective: Callable[[torch.Tensor], None]) -> None:
@@ -85,30 +108,49 @@ class EpisodeMesh:
             flush()
 
     def all_reduce_sum(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Each tensor becomes its sum over the ranks, in place."""
-        self._buckets(tensors, dist.all_reduce)
+        """Each tensor becomes its sum over the dp group, in place."""
+        self._buckets(tensors, lambda flat: dist.all_reduce(
+            flat, group=self.dp_group))
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Each tensor becomes rank 0's, in place."""
-        self._buckets(tensors, lambda flat: dist.broadcast(flat, src=0))
+        """Each tensor becomes dp index 0's, in place (within this tp
+        rank's dp group)."""
+        self._buckets(tensors, lambda flat: dist.broadcast(
+            flat, src=self.tp_rank, group=self.dp_group))
+
+    def tp_broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Each tensor becomes tp rank 0's of this dp index, in place."""
+        self._buckets(tensors, lambda flat: dist.broadcast(
+            flat, src=self.dp_rank * self.tp, group=self.tp_group))
 
     def all_gather(self, rows: torch.Tensor) -> torch.Tensor:
-        """``[k, ...]`` rows of every rank (the same shape on each) as
-        ``[world * k, ...]`` in global order: row ``j`` of rank ``r`` is
-        global row ``j * world + r``, the inverse of :meth:`shard`. Moved as
-        bytes, so any dtype goes over either backend."""
+        """``[k, ...]`` rows of every dp index (the same shape on each) as
+        ``[dp_world * k, ...]`` in global order: row ``j`` of dp index
+        ``d`` is global row ``j * dp_world + d``, the inverse of
+        :meth:`shard`. Moved as bytes, so any dtype goes over either
+        backend."""
         rows = rows.contiguous()
         flat = rows.reshape(-1).view(torch.uint8)
-        parts = [torch.empty_like(flat) for _ in range(self.world)]
-        dist.all_gather(parts, flat)
+        parts = [torch.empty_like(flat) for _ in range(self.dp_world)]
+        dist.all_gather(parts, flat, group=self.dp_group)
         parts = [p.view(rows.dtype).view(rows.shape) for p in parts]
         return torch.stack(parts, dim=1).reshape(
-            (self.world * rows.shape[0],) + rows.shape[1:])
+            (self.dp_world * rows.shape[0],) + rows.shape[1:])
 
     def barrier(self) -> None:
-        """Wait for every rank (an all-reduce on this rank's device, which
-        either backend runs there)."""
+        """Wait for every rank of the grid (an all-reduce on this rank's
+        device, which either backend runs there): a checkpoint that rank 0
+        writes is whole for every rank after it."""
         dist.all_reduce(torch.zeros(1, device=self.device))
+
+    def loader_group(self):
+        """A new gloo group over every rank, for one ``EpisodeLoader``'s
+        producer thread alone (None for a world of one). Every rank must
+        call it in the same order."""
+        if self.world == 1:
+            return None
+        return dist.new_group(backend="gloo",
+                              timeout=datetime.timedelta(seconds=TIMEOUT_S))
 
 
 def episode_mean_(buffers: Sequence[torch.Tensor],
@@ -149,19 +191,30 @@ def flat_buffers(buffers: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def init(rank: int, world: int, device: torch.device, *,
          init_method: str, backend: Optional[str] = None,
-         timeout_s: float = TIMEOUT_S) -> EpisodeMesh:
+         timeout_s: float = TIMEOUT_S, tp: int = 1) -> EpisodeMesh:
     """Join the process group as ``rank`` of ``world`` on ``device`` (NCCL
-    on ``cuda``, gloo on ``cpu``; ``backend`` overrides, for two ranks
-    sharing one card over gloo)."""
+    on ``cuda``, gloo on ``cpu``; ``backend`` overrides, for ranks sharing
+    one card over gloo) and, at ``tp`` above 1, make the grid's dp and tp
+    groups (every rank makes every group, in one order)."""
     device = torch.device(device)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(
-        backend, init_method=init_method, rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout_s))
-    return EpisodeMesh(rank, world, device)
+    if world % tp:
+        raise ValueError(f"{world} ranks do not make a grid of tp={tp}")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world, timeout=timeout)
+    if tp == 1:
+        return EpisodeMesh(rank, world, device)
+    dp_groups = [dist.new_group(list(range(t, world, tp)), timeout=timeout)
+                 for t in range(tp)]
+    tp_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp)),
+                                timeout=timeout)
+                 for d in range(world // tp)]
+    return EpisodeMesh(rank, world, device, tp, dp_groups[rank % tp],
+                       tp_groups[rank // tp])
 
 
 def close() -> None:
@@ -180,15 +233,17 @@ def torchrun_env() -> bool:
     return all(k in os.environ for k in TORCHRUN_ENV)
 
 
-def join_torchrun(device: torch.device, world: int) -> EpisodeMesh:
-    """Join the group ``torchrun`` set up; its world must be ``world``."""
+def join_torchrun(device: torch.device, world: int, tp: int = 1
+                  ) -> EpisodeMesh:
+    """Join the group ``torchrun`` set up; its world must be ``world``
+    (``DEVICE.NUM_CHIPS x DEVICE.TP``)."""
     have = int(os.environ["WORLD_SIZE"])
     if have != world:
-        raise ValueError(f"DEVICE.NUM_CHIPS={world} but torchrun started "
-                         f"{have} ranks")
+        raise ValueError(f"DEVICE.NUM_CHIPS x DEVICE.TP = {world} but "
+                         f"torchrun started {have} ranks")
     rank = int(os.environ["RANK"])
     return init(rank, world, rank_device(device, int(os.environ[
-        "LOCAL_RANK"])), init_method="env://")
+        "LOCAL_RANK"])), init_method="env://", tp=tp)
 
 
 def _free_port() -> int:
@@ -199,13 +254,13 @@ def _free_port() -> int:
 
 def _rank_main(rank: int, fn, devices: Sequence[torch.device],
                init_method: str, backend: Optional[str], timeout_s: float,
-               out: str, args: tuple) -> None:
+               tp: int, out: str, args: tuple) -> None:
     world = len(devices)
     if devices[rank].type == "cpu":
         # the ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     mesh = init(rank, world, devices[rank], init_method=init_method,
-                backend=backend, timeout_s=timeout_s)
+                backend=backend, timeout_s=timeout_s, tp=tp)
     try:
         result = fn(mesh, *args)
         if mesh.is_main:
@@ -217,10 +272,11 @@ def _rank_main(rank: int, fn, devices: Sequence[torch.device],
 def spawn(fn: Callable, world: int, device: torch.device, args: tuple = (),
           *, devices: Optional[Sequence[torch.device]] = None,
           backend: Optional[str] = None,
-          timeout_s: float = TIMEOUT_S):
+          timeout_s: float = TIMEOUT_S, tp: int = 1):
     """Run ``fn(mesh, *args)`` in ``world`` new processes over a group on a
     free local port, rank ``r`` on :func:`rank_device` (or on
-    ``devices[r]``); returns rank 0's result. A rank that raises ends the
+    ``devices[r]``), on a grid of ``world // tp`` dp indices by ``tp``;
+    returns rank 0's result. A rank that raises ends the
     others and raises here (``torch.multiprocessing``'s
     ``ProcessRaisedException``). ``fn`` must be importable by name."""
     import torch.multiprocessing as mp
@@ -232,7 +288,7 @@ def spawn(fn: Callable, world: int, device: torch.device, args: tuple = (),
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "rank0.pt")
         mp.spawn(_rank_main, nprocs=world, join=True,
-                 args=(fn, devices, init_method, backend, timeout_s, out,
-                       args))
+                 args=(fn, devices, init_method, backend, timeout_s, tp,
+                       out, args))
         # written by rank 0 of this call
         return torch.load(out, weights_only=False)

@@ -8,8 +8,10 @@ seeds every later draw, ``train/learner.py``). The payload is one file,
 ``checkpoint.pt``, inside the tag's directory; a save writes a temporary
 file beside it and renames it over the old one, so an existing directory is
 never deleted. Over ranks every rank calls :meth:`CheckpointManager.save`:
-rank 0 writes and the ranks meet at a barrier, so the file is whole on every
-rank's return; every rank restores from it.
+each gathers the canonical state (the tp ranks' shards together, so the
+payload is the ``TP=1`` one at any ``DEVICE.TP``), global rank 0 writes
+and the ranks meet at a barrier, so the file is whole on every rank's
+return; every rank restores from it and takes its shards.
 """
 
 from __future__ import annotations
@@ -34,9 +36,9 @@ class CheckpointManager:
 
     def save(self, learner, tag: str, best_acc: float = 0.0) -> str:
         path = self._path(tag)
+        payload = learner.state_dict()
         if self.mesh is None or self.mesh.is_main:
             os.makedirs(path, exist_ok=True)
-            payload = learner.state_dict()
             payload["meta"] = {"iteration": int(learner.episode),
                                "acc": float(best_acc)}
             tmp = os.path.join(path, PAYLOAD + ".tmp")

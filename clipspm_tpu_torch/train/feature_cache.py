@@ -14,11 +14,12 @@ contributes identical features to every episode that samples it. So:
    episodes' index and label arrays moved to the device once.
 
 Over ranks (the learner's ``EpisodeMesh``) every rank draws every plan;
-rank ``r`` encodes the sorted unique videos ``r, r+N, ...`` and the rows
-are all-gathered into a table replicated on every rank; then it runs
-episodes ``r, r+N, ...`` and the (loss, accuracy) pairs are all-gathered
-in episode order. Both batch sizes round up to a multiple of the ranks, as
-the JAX evaluator rounds them to its ``dp`` width.
+dp index ``d`` of ``N`` encodes the sorted unique videos ``d, d+N, ...``
+(its tp ranks together, through the sharded tower) and the rows are
+all-gathered over the dp group into a table replicated on every rank; then
+it runs episodes ``d, d+N, ...`` and the (loss, accuracy) pairs are
+all-gathered in episode order. Both batch sizes round up to a multiple of
+the dp indices, as the JAX evaluator rounds them to its ``dp`` width.
 
 Metrics (mean accuracy, ``196*std/sqrt(n)`` CI, mean loss) and the result
 dict are the JAX evaluator's.
@@ -104,7 +105,7 @@ class FeatureCachedEvaluator:
         self.catalog = catalog
         self.sampler = sampler
         self.mesh = learner.mesh
-        world = self.mesh.world if self.mesh is not None else 1
+        world = self.mesh.dp_world if self.mesh is not None else 1
 
         def round_up(n: int) -> int:
             return -(-max(1, int(n)) // world) * world
@@ -168,7 +169,8 @@ class FeatureCachedEvaluator:
         frame_plans = _frame_plans(plans)
         vids = np.asarray(sorted(frame_plans), dtype=np.int64)
         mesh = self.mesh
-        mine = vids[mesh.rank::mesh.world] if mesh is not None else vids
+        mine = (vids[mesh.dp_rank::mesh.dp_world] if mesh is not None
+                else vids)
         # a rank with no video encodes one, for the rows' shape, and keeps
         # none of it
         batch_vids = mine if len(mine) else vids[:1]
@@ -200,7 +202,7 @@ class FeatureCachedEvaluator:
             stager.shutdown(wait=False, cancel_futures=True)
         table = torch.cat(rows, dim=0)[:len(mine)]
         if mesh is not None:
-            k = -(-len(vids) // mesh.world)
+            k = -(-len(vids) // mesh.dp_world)
             pad = table.new_zeros((k - len(mine),) + table.shape[1:])
             table = mesh.all_gather(torch.cat([table, pad]))[:len(vids)]
         row_of = {int(v): i for i, v in enumerate(vids)}
@@ -263,7 +265,7 @@ class FeatureCachedEvaluator:
         loss_acc = (torch.cat(loss_acc) if loss_acc
                     else torch.zeros((0, 2))).double()
         if mesh is not None:
-            k = -(-n_episodes // mesh.world)
+            k = -(-n_episodes // mesh.dp_world)
             pad = loss_acc.new_zeros((k - len(loss_acc), 2))
             loss_acc = mesh.all_gather(torch.cat([loss_acc, pad]).to(
                 device)).cpu()[:n_episodes]

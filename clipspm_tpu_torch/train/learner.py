@@ -10,20 +10,32 @@ step. A padding episode (past ``n_valid``) runs no forward at all, which is
 what the JAX step's zero weight does to its gradient, BatchNorm statistics,
 metrics and episode count.
 
-``parallel_episodes=M`` (the JAX argument; ``DEVICE.NUM_CHIPS`` ranks run
-``M = N``) splits a step into microsteps of M episodes, as the JAX step's
-``[E//M, M]`` reshape does: the M episodes of a microstep run from the same
-incoming BatchNorm statistics, which then become the mean of their M
-updated ones (an all-padding microstep is not run, so it keeps them). In
+``parallel_episodes=M`` (the JAX argument; ``DEVICE.NUM_CHIPS`` dp indices
+run ``M = N``) splits a step into microsteps of M episodes, as the JAX
+step's ``[E//M, M]`` reshape does: the M episodes of a microstep run from
+the same incoming BatchNorm statistics, which then become the mean of their
+M updated ones (an all-padding microstep is not run, so it keeps them). In
 one process the M episodes run one after another (the plain version of the
-multi-rank step); over an ``EpisodeMesh`` rank ``r`` runs episode
-``j*M + r`` of microstep ``j``, the statistics' mean is one all-reduce a
-microstep and the gradients' sum one all-reduce a step. With
-``SOLVER.ACCUM_DTYPE: bfloat16`` each microstep's gradient (the fp32 sum of
-the episodes this process ran in it) is rounded to bf16 and added into a
-bf16 sum, cast to fp32 for the step: in one process the JAX rule (M fp32
-gradients summed, then rounded); over ranks each rank rounds its one
-episode a microstep, and the ranks' bf16 sums are all-reduced in fp32.
+multi-rank step); over an ``EpisodeMesh`` dp index ``d`` runs episode
+``j*M + d`` of microstep ``j``, the statistics' mean is one all-reduce a
+microstep and the gradients' sum one all-reduce a step, over the dp group.
+With ``SOLVER.ACCUM_DTYPE: bfloat16`` each microstep's gradient (the fp32
+sum of its M episodes' gradients; over ranks one fp32 all-reduce a
+microstep) is rounded to bf16 and added into a bf16 sum, cast to fp32 for
+the step: the JAX rule at every ``NUM_CHIPS``.
+
+At ``DEVICE.TP`` above 1 the model's tower is sharded over the tp ranks of
+a dp index (``parallel/tensor.py``), which run the same episodes; the
+optimizer holds the shards, and :meth:`state_dict` and
+:meth:`load_state_dict` the canonical unsharded layout, so a checkpoint is
+the ``TP=1`` payload key for key. The gradients are summed over the dp
+group alone: the backward's all-reduce over the tp group (Megatron's *f*)
+hands every tp rank the same bits, so the replicated parameters' gradients
+are the same sum on every tp rank. On the CPU they come out bit-identical;
+on a GPU a backward kernel that adds with atomics rounds them apart (to
+5.2e-6 relative in ViT-B/16's head on an H100), so at the end of each step
+the replicated gradients and the BatchNorm buffers take tp rank 0's (one
+broadcast over the tp group) and the replicas stay bit-identical.
 
 Frames are transformed on the device, drawn from the learner's
 ``torch.Generator``; dropout draws from the device's default generator.
@@ -50,6 +62,9 @@ from torch import nn
 from ..data.episode import Episode, stack_episodes, to_device
 from ..data.transforms import TransformSpec, episode_device_transform
 from ..parallel.mesh import EpisodeMesh, episode_mean_, flat_buffers
+from ..parallel.tensor import (full_optimizer_state, full_shape,
+                               full_state_dict, load_full_state_dict,
+                               shard_model_, shard_optimizer_state)
 from .losses import loss_and_acc
 from .optim import make_optimizer
 
@@ -93,12 +108,13 @@ class Learner:
                  mesh: Optional[EpisodeMesh] = None,
                  parallel_episodes: Optional[int] = None):
         if parallel_episodes is None:
-            parallel_episodes = mesh.world if mesh is not None else 1
+            parallel_episodes = mesh.dp_world if mesh is not None else 1
         if parallel_episodes < 1 or (mesh is not None
-                                     and parallel_episodes != mesh.world):
+                                     and parallel_episodes != mesh.dp_world):
             raise ValueError(
-                f"parallel_episodes={parallel_episodes}: one episode a rank "
-                f"per microstep needs {mesh.world if mesh else '>= 1'}")
+                f"parallel_episodes={parallel_episodes}: one episode a dp "
+                f"index per microstep needs "
+                f"{mesh.dp_world if mesh else '>= 1'}")
         self.mesh = mesh
         self.parallel_episodes = int(parallel_episodes)
         self.cfg = cfg
@@ -115,6 +131,14 @@ class Learner:
         self.train_source = train_source
         self.test_source = test_source
         self.log = log_fn
+        if mesh is not None:
+            # every rank starts from dp index 0's replica, as DDP does
+            mesh.broadcast_([*self.model.state_dict().values(),
+                             self.text_train, self.text_test])
+        # the tp layout (empty at TP=1), before the optimizer is made over
+        # the shards
+        self.shards = (shard_model_(self.model, mesh)
+                       if mesh is not None and mesh.tp > 1 else {})
         self.optimizer, self.scheduler = make_optimizer(
             cfg, self.model.parameters())
         self.episode = 0                       # episodes consumed
@@ -122,10 +146,6 @@ class Learner:
         self.gen = torch.Generator(device=device)
         self._copy_stream = (torch.cuda.Stream(device=device)
                              if device.type == "cuda" else None)
-        if mesh is not None:
-            # every rank starts from rank 0's replica, as DDP does
-            mesh.broadcast_([*self.model.state_dict().values(),
-                             self.text_train, self.text_test])
 
     # -- state ---------------------------------------------------------------
 
@@ -140,30 +160,43 @@ class Learner:
         else:
             torch.manual_seed(seed)
 
+    def _param_names(self) -> List[str]:
+        """The parameter names in the optimizer's order."""
+        return [n for n, _ in self.model.named_parameters()]
+
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        """The canonical (``TP=1``) state: over tp ranks every rank of a
+        dp index must call it (it gathers the shards)."""
+        model = full_state_dict(self.model, self.shards, self.mesh)
+        optim = full_optimizer_state(self.optimizer.state_dict(),
+                                     self._param_names(), self.shards,
+                                     self.mesh)
+        return {"model": model, "optimizer": optim,
                 "scheduler": self.scheduler.state_dict(),
                 "episode": self.episode,
                 "text_train": self.text_train, "text_test": self.text_test}
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore :meth:`state_dict`. A model tree that differs in keys or
+        """Restore :meth:`state_dict` (canonical, at any ``TP``; each tp
+        rank takes its shards). A model tree that differs in keys or
         shapes raises before anything changes (``nn.Module.load_state_dict``
         would copy the matching tensors first). No generator state is
         restored, nor saved: the episode count seeds every later draw
         (generator states in a checkpoint of an earlier version, of any
         device, are ignored)."""
-        mine = self.model.state_dict()
+        tp = self.mesh.tp if self.mesh is not None else 1
+        mine = {k: full_shape(v, self.shards.get(k), tp)
+                for k, v in self.model.state_dict().items()}
         theirs = state["model"]
         bad = sorted(set(mine) ^ set(theirs)) + sorted(
             k for k in set(mine) & set(theirs)
-            if mine[k].shape != theirs[k].shape)
+            if mine[k] != tuple(theirs[k].shape))
         if bad:
             raise RuntimeError(f"model state differs in {len(bad)} keys or "
                                f"shapes, e.g. {bad[:3]}")
-        self.model.load_state_dict(theirs)
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_full_state_dict(self.model, theirs, self.shards, self.mesh)
+        self.optimizer.load_state_dict(shard_optimizer_state(
+            state["optimizer"], self._param_names(), self.shards, self.mesh))
         self.scheduler.load_state_dict(state["scheduler"])
         self.episode = int(state["episode"])
         self.text_train = state["text_train"].to(self.device)
@@ -208,8 +241,8 @@ class Learner:
                             self.tasks_per_batch, cfg=self.cfg, train=train)
 
     def _positions(self, n: int) -> range:
-        """This process's episodes of a step of ``n``: all of them, or the
-        rank's shard."""
+        """This process's episodes of a step of ``n``: all of them, or its
+        dp index's shard."""
         return self.mesh.shard(n) if self.mesh is not None else range(n)
 
     def _local(self, episodes: Sequence[Optional[Episode]]) -> list:
@@ -220,7 +253,7 @@ class Learner:
         if any(ep is None for ep in mine):
             raise ValueError("a step's episode of this rank is missing: its "
                              "source did not shard the step as "
-                             "rank, rank + world, ...")
+                             "dp_rank, dp_rank + dp_world, ...")
         return mine
 
     def _step(self, batch: Optional[Episode], n_valid: int
@@ -262,24 +295,36 @@ class Learner:
                 episode_mean_(stats, sums, min(M, n_valid - j * M),
                               self.mesh)
             if self.accum_dtype is not None:
-                # the microstep's gradient, rounded, joins the bf16 sum
-                grads = [None if p.grad is None
-                         else p.grad.to(self.accum_dtype) for p in params]
+                # the microstep's gradient: its M episodes' summed in fp32
+                # (over the dp group, one all-reduce), then rounded into
+                # the bf16 sum
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                         for p in params]
+                if self.mesh is not None:
+                    self.mesh.all_reduce_sum(grads)
+                grads = [g.to(self.accum_dtype) for g in grads]
                 acc_grads = grads if acc_grads is None else [
-                    a if g is None else g if a is None else a + g
-                    for a, g in zip(acc_grads, grads)]
+                    a + g for a, g in zip(acc_grads, grads)]
                 self.optimizer.zero_grad(set_to_none=True)
         if acc_grads is not None:
             for p, g in zip(params, acc_grads):
-                p.grad = None if g is None else g.to(p.dtype)
+                p.grad = g.to(p.dtype)
         for p in params:
             if p.grad is None:
                 # the JAX chain decays every parameter, used or not
                 p.grad = torch.zeros_like(p)
         metrics = torch.stack([loss_sum, acc_sum.to(loss_sum.dtype)])
         if self.mesh is not None:
-            # the JAX step's sum over all E episodes
-            self.mesh.all_reduce_sum([p.grad for p in params] + [metrics])
+            # the JAX step's sum over all E episodes (the bf16 sum has it)
+            self.mesh.all_reduce_sum(
+                [metrics] if acc_grads is not None
+                else [p.grad for p in params] + [metrics])
+        if self.mesh is not None and self.mesh.tp > 1:
+            # the replicas take tp rank 0's rounding (see the module's
+            # docstring)
+            self.mesh.tp_broadcast_(
+                [p.grad for n, p in zip(self._param_names(), params)
+                 if self.shards[n] is None] + batch_stats(self.model))
         self.optimizer.step()
         self.scheduler.step()
         self.episode += n_valid
@@ -317,15 +362,15 @@ class Learner:
         has been issued. A trailing partial batch runs only its real
         episodes (the JAX package pads it with duplicates and trims their
         results). Over ranks ``batch_size`` is rounded up to a multiple of
-        the ranks, as the JAX package rounds it to its ``dp`` width; each
-        rank runs the episodes its source gave it (the others' places hold
-        None) and every rank gathers all (loss, accuracy) pairs in stream
-        order. Returns mean accuracy (%), its ``196*std/sqrt(n)`` CI, mean
-        loss, the per-episode ``loss_acc`` ``[n, 2]``, and the wall and
-        host-stall seconds."""
+        the dp ranks, as the JAX package rounds it to its ``dp`` width;
+        each rank runs the episodes its source gave it (the others' places
+        hold None) and every rank gathers all (loss, accuracy) pairs in
+        stream order over the dp group. Returns mean accuracy (%), its
+        ``196*std/sqrt(n)`` CI, mean loss, the per-episode ``loss_acc``
+        ``[n, 2]``, and the wall and host-stall seconds."""
         it = iter(source or self.test_source)
         batch_size = max(1, int(batch_size))
-        world = self.mesh.world if self.mesh is not None else 1
+        world = self.mesh.dp_world if self.mesh is not None else 1
         batch_size += -batch_size % world
         self.model.eval()
 
@@ -396,7 +441,7 @@ class Learner:
         this process's ``[k, 3]`` (position, loss, accuracy) rows, over
         ranks gathered from all of them."""
         if self.mesh is not None:
-            k = -(-n // self.mesh.world)
+            k = -(-n // self.mesh.dp_world)
             if len(mine) > k:
                 raise ValueError(f"{len(mine)} of {n} episodes on one rank")
             pad = np.full((k - len(mine), 3), -1.0)

@@ -187,27 +187,28 @@ def _device_key(cfg, key: str) -> int:
 
 
 def num_chips(cfg) -> int:
-    """``DEVICE.NUM_CHIPS``, the ranks (1 when unset)."""
+    """``DEVICE.NUM_CHIPS``, the dp width (1 when unset)."""
     return _device_key(cfg, "NUM_CHIPS")
 
 
+def num_tp(cfg) -> int:
+    """``DEVICE.TP``, the tp width (1 when unset)."""
+    return _device_key(cfg, "TP")
+
+
 def check_num_chips(cfg, device=None) -> None:
-    """``DEVICE.NUM_CHIPS`` (the ranks) and ``DEVICE.TP`` (1 when unset),
-    with the JAX ``build_device_mesh``'s errors: below 1 raises
-    ``ValueError`` (its ``or 1`` reads 0 as 1, the port refuses it); more
-    ranks than visible CUDA devices raises ``ValueError`` when ``device``
-    is ``cuda`` (on the CPU any number of ranks runs); a training run whose
-    ``TASKS_PER_BATCH`` the ranks do not divide raises ``ValueError``.
-    ``TP`` above 1 is not ported."""
-    n_dp, n_tp = num_chips(cfg), _device_key(cfg, "TP")
+    """``DEVICE.NUM_CHIPS`` (dp) and ``DEVICE.TP`` (tp), with the JAX
+    ``build_device_mesh``'s errors: below 1 raises ``ValueError`` (its
+    ``or 1`` reads 0 as 1, the port refuses it); a grid of more ranks
+    (``NUM_CHIPS x TP``) than visible CUDA devices raises ``ValueError``
+    when ``device`` is ``cuda`` (on the CPU any grid runs); a training run
+    whose ``TASKS_PER_BATCH`` the dp width does not divide raises
+    ``ValueError`` (TP takes no part in it)."""
+    n_dp, n_tp = num_chips(cfg), num_tp(cfg)
     if n_dp < 1 or n_tp < 1:
         raise ValueError(f"DEVICE.NUM_CHIPS={n_dp} / DEVICE.TP={n_tp} must "
                          "be >= 1")
-    if n_tp > 1:
-        raise NotImplementedError(
-            "DEVICE.TP > 1 is not ported yet (ROADMAP.md, open item "
-            "'Tensor parallelism')")
-    if n_dp == 1:
+    if n_dp * n_tp == 1:
         return
     if device is not None and torch.device(device).type == "cuda":
         n_avail = torch.cuda.device_count()
@@ -244,10 +245,12 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
                   ) -> Learner:
     """Model + weights + text tables (CLIP heads only) + transform, the test
     ``EpisodeLoader`` and, for a training run, the train one, on ``device``
-    (``cuda`` unless the caller asks for the CPU). At ``DEVICE.NUM_CHIPS``
-    above 1 each rank builds its own on its ``mesh`` (whose device is the
-    rank's): loaders that decode the rank's share of each stream and a
-    learner that runs its share of each step.
+    (``cuda`` unless the caller asks for the CPU). On a grid of more than
+    one rank (``DEVICE.NUM_CHIPS x DEVICE.TP``) each rank builds its own on
+    its ``mesh`` (whose device is the rank's): loaders that decode its dp
+    index's share of each stream and a learner that runs that share of each
+    step, its tower sharded over the tp ranks once the weights are in place
+    (``Learner``).
 
     ``allow_random_weights`` (CLI ``--allow-random-weights`` or cfg
     ``MODEL.ALLOW_RANDOM_WEIGHTS``) permits evaluating a CLIP head without
@@ -256,14 +259,17 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
     them.
     """
     check_num_chips(cfg)
-    if num_chips(cfg) != (mesh.world if mesh is not None else 1):
+    grid = (num_chips(cfg), num_tp(cfg))
+    if grid != ((mesh.dp_world, mesh.tp) if mesh is not None else (1, 1)):
         raise ValueError(
-            f"DEVICE.NUM_CHIPS={num_chips(cfg)} runs as that many ranks, "
-            "each building its learner on its mesh (the CLI starts them); "
-            f"this one was given {mesh.world if mesh else 'no'} mesh")
+            f"DEVICE.NUM_CHIPS x DEVICE.TP = {grid[0]} x {grid[1]} runs as "
+            "that grid of ranks, each building its learner on its mesh (the "
+            "CLI starts them); this one was given "
+            f"{f'{mesh.dp_world} x {mesh.tp}' if mesh else 'no'} mesh")
     dev = resolve_device(mesh.device if mesh is not None else device)
     if mesh is not None:
-        log_fn(f"device mesh: dp={mesh.world} x tp=1 ({mesh.world} devices)")
+        log_fn(f"device mesh: dp={mesh.dp_world} x tp={mesh.tp} "
+               f"({mesh.world} devices)")
     use_amp = bool(cfg.get("USE_AMP", False))
     set_matmul_precision(use_amp)
     t0 = time.perf_counter()
@@ -280,8 +286,9 @@ def build_learner(cfg, log_fn=print, allow_random_weights: bool = False,
         _, sampler = build_catalog_and_sampler(cfg, mode, train, queries)
         return EpisodeLoader(sampler, num_workers=int(cfg.DATA.NUM_WORKERS),
                              prefetch=loader_prefetch(cfg, train),
-                             shard=((mesh.rank, mesh.world) if mesh
-                                    else (0, 1)))
+                             shard=((mesh.dp_rank, mesh.dp_world) if mesh
+                                    else (0, 1)),
+                             group=mesh.loader_group() if mesh else None)
 
     def learner(text_train, text_test):
         test_loader = make_loader("test", False,

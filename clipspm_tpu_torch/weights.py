@@ -24,14 +24,16 @@
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from .models.backbones.clip import (AttentionPool2d, CLIPModel,
+                                    FP32LayerNorm, ModifiedResNet,
                                     VisionTransformer, _Attention)
+from .models.backbones.resnet import TorchResNet
 from .models.heads.ta2n import ACM, TTM
 
 StateDict = Dict[str, torch.Tensor]
@@ -316,4 +318,74 @@ def model_state_dict(variables: Mapping[str, Any]) -> StateDict:
     else:
         out.update(head_state_dict(
             {k: v for k, v in params.items() if k != "backbone"}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# port parameter name -> JAX path (the inverse of the maps above)
+# ---------------------------------------------------------------------------
+
+# the port's containers inside a trunk that the JAX paths do not have
+_DROPPED = ("attn", "mlp")
+_DOWNSAMPLE = {"0": "down_conv", "1": "down_bn"}
+
+
+def _trunk_segments(parts) -> list:
+    """The JAX segments of a port module path inside a trunk (a CLIP tower,
+    the text transformer, the torchvision ResNet): ``resblocks.i`` ->
+    ``resblock_i``, ``layerS.B`` -> ``layerS_B``, ``downsample.0/1`` ->
+    ``down_conv/down_bn``, the ``attn``/``mlp`` containers dropped."""
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p == "resblocks":
+            out.append(f"resblock_{parts[i + 1]}")
+            i += 2
+        elif p.startswith("layer") and p[5:].isdigit() and \
+                i + 1 < len(parts):
+            out.append(f"{p}_{parts[i + 1]}")
+            i += 2
+        elif p == "downsample":
+            out.append(_DOWNSAMPLE[parts[i + 1]])
+            i += 2
+        else:
+            if p not in _DROPPED:
+                out.append(p)
+            i += 1
+    return out
+
+
+def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """Each parameter name of a port model -> the path of the JAX parameter
+    it is carried from (the inverse of :func:`model_state_dict`,
+    :func:`clip_state_dict` and the head maps): a Linear's or a
+    convolution's ``weight`` is ``kernel``, a norm's ``scale`` (a CLIP
+    LayerNorm's ``ln/scale``), an embedding's ``embedding``; the trunks'
+    containers as :func:`_trunk_segments` names them; a head's path is its
+    own, one to one."""
+    roots = tuple(name for name, mod in model.named_modules()
+                  if isinstance(mod, (CLIPModel, VisionTransformer,
+                                      ModifiedResNet, TorchResNet)))
+    out: Dict[str, Tuple[str, ...]] = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        owner = model.get_submodule(".".join(parts[:-1]))
+        leaf = parts[-1]
+        in_trunk = any(name.startswith(f"{r}.") or r == "" for r in roots)
+        mods = _trunk_segments(parts[:-1]) if in_trunk else parts[:-1]
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            tail = ["in_proj", "kernel" if leaf.endswith("weight")
+                    else "bias"]
+        elif isinstance(owner, FP32LayerNorm) and in_trunk:
+            tail = ["ln", "scale" if leaf == "weight" else leaf]
+        elif isinstance(owner, (nn.LayerNorm, nn.modules.batchnorm._NormBase,
+                                nn.GroupNorm)):
+            tail = ["scale" if leaf == "weight" else leaf]
+        elif isinstance(owner, nn.Embedding):
+            tail = ["embedding"]
+        elif leaf == "weight":
+            tail = ["kernel"]
+        else:
+            tail = [leaf]
+        out[name] = tuple(mods + tail)
     return out

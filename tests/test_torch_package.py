@@ -102,7 +102,7 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
     (["TEST.ONLY_TEST=true", "TEST.TEST_MODEL_PATH=/nonexistent/ckpt"],
      FileNotFoundError),
     (["DEVICE.NUM_CHIPS=3"], ValueError),   # TASKS_PER_BATCH=16 over 3
-    (["DEVICE.TP=2"], NotImplementedError),          # tensor parallelism
+    (["DEVICE.TP=2"], ValueError),   # one CUDA device visible
     (["DEVICE.NUM_CHIPS=0"], ValueError),
     (["SOLVER.ACCUM_DTYPE=float16"], ValueError),
     (["MODEL.BACKBONE=ViT-B/16", "MODEL.TRAIN_REMAT_POLICY=everything"],
@@ -110,9 +110,18 @@ def test_cli_without_device_refuses_to_run_on_cpu(monkeypatch, tmp_path):
     (["MODEL.TRAIN_ENCODE_CHUNK=40"], ValueError),  # BatchNorm tower
 ])
 def test_cli_routes_not_carried_raise_before_model_build(opts, error,
-                                                         tmp_path):
+                                                         tmp_path,
+                                                         monkeypatch):
+    """On the CPU; ``DEVICE.TP=2`` on ``cuda`` with one device visible,
+    where its grid of two ranks does not fit (on the CPU it builds:
+    ``tests/test_torch_tp_cli.py``)."""
+    device = "cpu"
+    if "DEVICE.TP=2" in opts:
+        device = "cuda"
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(error):
-        port_cli(["--cfg", HMDB, "--device", "cpu", *opts,
+        port_cli(["--cfg", HMDB, "--device", device, *opts,
                   f"CHECKPOINT.CHECKPOINT_DIR={tmp_path}"])
     assert not os.path.exists(os.path.join(tmp_path, "log.txt"))
 

@@ -7,9 +7,9 @@ code before the repair:
   learner continues as the saved one does);
 - ``SOLVER.ACCUM_DTYPE: bfloat16`` sums the episodes' gradients in bf16 (as
   the JAX step does) and any value but float32/bfloat16 raises;
-- ``DEVICE.NUM_CHIPS`` / ``DEVICE.TP`` below 1 raise ``ValueError``, as do
-  more ranks than visible CUDA devices; ``TP`` above 1 is refused as not
-  ported.
+- ``DEVICE.NUM_CHIPS`` / ``DEVICE.TP`` below 1 raise ``ValueError``, as
+  does a grid of more ranks (``NUM_CHIPS x TP``) than visible CUDA devices;
+  on the CPU any grid builds.
 
 (The cached evaluator's evaluation-mode loss is held in
 ``tests/test_torch_eval.py``.)
@@ -175,19 +175,20 @@ def test_bf16_accumulation_sums_in_bf16_and_rejects_garbage(monkeypatch):
     ({"NUM_CHIPS": 0, "TP": 1}, ValueError),
     ({"NUM_CHIPS": 1, "TP": 0}, ValueError),
     ({"NUM_CHIPS": -2, "TP": 1}, ValueError),
-    ({"NUM_CHIPS": 1, "TP": 2}, NotImplementedError),
-    ({"NUM_CHIPS": 2, "TP": 1}, ValueError),     # one CUDA device visible
+    ({"NUM_CHIPS": 1, "TP": 2}, ValueError),     # one CUDA device visible
+    ({"NUM_CHIPS": 2, "TP": 1}, ValueError),
+    ({"NUM_CHIPS": 2, "TP": 2}, ValueError),
     ({"NUM_CHIPS": 1, "TP": 1}, None),
     ({}, None),
 ])
 def test_device_counts_are_checked(device, error, monkeypatch):
-    """The JAX ``build_device_mesh`` checks: more ranks than visible CUDA
-    devices raises its ``ValueError`` (here one device is made visible);
-    on the CPU any number of ranks runs."""
+    """The JAX ``build_device_mesh`` checks: a grid of more ranks than
+    visible CUDA devices raises its ``ValueError`` (here one device is made
+    visible); on the CPU any grid runs."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     cfg = ConfigNode({"DEVICE": device, "TRAIN": {"TASKS_PER_BATCH": 4},
                       "TEST": {"ONLY_TEST": False}})
-    if device.get("NUM_CHIPS") == 2:
+    if device.get("NUM_CHIPS", 1) * device.get("TP", 1) > 1:
         check_num_chips(cfg, "cpu")
     if error is None:
         check_num_chips(cfg, "cuda")
