@@ -34,7 +34,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    - clipspm-vit: the same on the ViT-B/16 tower (feature width 512),
      whose fp32 features on the card are also held against the CPU's;
      clipspm-vit-switched: the same with MODEL.INT8_EVAL, FAST_SOFTMAX and
-     BF16_NORMS (50 episodes; every block's four projections through the
+     BF16_NORMS (30 episodes; every block's four projections through the
      int8 GEMM);
    - clipfsar, cpm2c (HMDB layout, RN50, 5-way 1-shot, bf16; 1 and 2 K1
      launches per episode, cpm2c's second at L=7) and sten (UCF layout; no
@@ -52,6 +52,16 @@ Phases, in order; any failure ends the run with a nonzero exit:
      model's fp32 logits over one episode on the card held against the
      CPU's; then the same 8 episodes of clipspm through the uncached and
      the cached evaluator at fp32, whose losses and accuracies must agree;
+   - extras: the JAX package's last modules. cpm2c-extras, cpm2c RN50
+     with the visual prompts and the video adapter (built directly, as no
+     config sets them) over SyntheticEpisodeSource streams: the cached
+     route's loud fallback, 64 uncached episodes at 32 a step and one
+     16-episode AMP train step (K1's fused mode, 2 launches per episode,
+     held against the plain version on the path's inputs), the model's
+     fp32 outputs and the head's gradients on the card against the CPU;
+     the temporal ResNet-50 in both modes on 40 frames (eval forward, and
+     a train-mode forward and backward against the CPU and an fp64
+     witness); each module of models/blocks_extra.py at D=2048;
    - clipspm-train and clipspm-vit-train: CLIP-SPM training on the RN50 and
      the ViT-B/16 towers (5-way 5-shot 4-query, 16 episodes an Adam step,
      bf16; the ViT in rematerialised chunks of 40 frames keeping the
@@ -79,14 +89,14 @@ Phases, in order; any failure ends the run with a nonzero exit:
    against the CPU's (molo's also in fp64 on the card against the CPU's
    fp64);
    - clipspm-vit-train-attn and clipspm-vit-train-mlp: clipspm-vit-train
-     under MODEL.TRAIN_REMAT_POLICY attn and mlp, one 8-episode Adam step
+     under MODEL.TRAIN_REMAT_POLICY attn and mlp, one 4-episode Adam step
      through the CLI (3 K1 launches an episode), then one fp32 step's
      gradients on the card under the policy against "full"'s;
 5. ddp: DEVICE.NUM_CHIPS episode parallelism. Two ranks share cuda:0 over
    gloo (NCCL refuses two ranks on one device), each a process of its own,
    held against the single-process oracle (parallel_episodes=2, its own
-   process, run first): clipspm-vit-train and ta2n-train (a 16-episode and
-   a masked 8-episode step at fp32, TF32 off: each episode's loss, the
+   process, run first): clipspm-vit-train and ta2n-train (an 8-episode and
+   a masked 4-episode step at fp32, TF32 off: each episode's loss, the
    parameters and every BatchNorm buffer after each step, K1/K2 launches
    over the ranks; then an AMP step timed at N=2 on one card beside N=1,
    the all-reduces' seconds, each process's peak memory) and clipspm RN50
@@ -299,7 +309,7 @@ def _check_grads(what: str, kernel_fn, plain_fn, inputs, gen) -> float:
     return worst
 
 
-def _times(fn, iters: int = 200) -> tuple:
+def _times(fn, iters: int = 50) -> tuple:
     """(eager ms, CUDA-graph device ms) per call."""
     from clipspm_tpu_torch.tools.timing import eager_ms, graph_ms
 
@@ -654,7 +664,7 @@ def check_bf16_batchnorm() -> dict:
 #   evaluation: 4 GEMMs a block and no float projection, counted per tower
 #   call), MODEL.FAST_SOFTMAX (the attention spelled out, its softmax the
 #   max-shifted one in bf16) and MODEL.BF16_NORMS (LayerNorms in bf16);
-#   50 episodes, 3 fused K1 launches each. Its tower on the card is held
+#   3 fused K1 launches an episode. Its tower on the card is held
 #   against the CPU's (``check_tower_against_cpu``): its fp32 features
 #   without int8 as the clipspm-vit path's are, and with int8 each of its
 #   48 projections against the plain version on the input it got;
@@ -696,7 +706,7 @@ PATHS = {
               "MODEL.FAST_SOFTMAX=true", "MODEL.BF16_NORMS=true"),
         frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN", classes=10,
         videos=12, launches={"K1": 3, "K2": 0}, metrics=(None,),
-        tower_check=True, int8=True, episodes=50),
+        tower_check=True, int8=True),
     "clipfsar": dict(cfg="configs/clipfsar/hmdb.yaml", opts=(),
                      frame_dir="hmdb_256x256q5_l8", split_dir="hmdb_ARN",
                      classes=10, videos=12, launches={"K1": 1, "K2": 0},
@@ -733,10 +743,10 @@ PATHS = {
 CACHED_PATHS = tuple(n for n, spec in PATHS.items()
                      if spec.get("cached", True))
 # episodes of each cached eval path (cut from 300, then to 200 and 100, then
-# to 50 to make room for the tower's switches and the remat policies within
-# the script's time; the head rate is read over them, the rest of a path's
-# time does not depend on them)
-MAIN_EPISODES = 50
+# to 50 to make room for the tower's switches and the remat policies, then
+# to 30 for phase extras, within the script's time; the head rate is read
+# over them, the rest of a path's time hardly depends on them)
+MAIN_EPISODES = 30
 SPLIT_FRAMES, SPLIT_PX = 10, 256
 SEQ_LEN = 8
 # the head on the card (fp32, no TF32) against the head on the CPU (fp32):
@@ -845,6 +855,33 @@ def write_split(root: str, frame_dir: str, split_dir: str, classes: int,
     os.makedirs(sdir, exist_ok=True)
     with open(os.path.join(sdir, f"{mode}list03.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+_SPLIT_ROOTS: dict = {}
+
+
+def split_root(spec: dict, train=None) -> str:
+    """A directory holding ``spec``'s test split (and a train split of
+    ``train`` = (classes, videos)), written once a run and shared, read
+    only, by every path of that layout (their checkpoints go elsewhere);
+    removed at exit."""
+    import atexit
+    import shutil
+
+    key = (spec["frame_dir"], spec["split_dir"], spec["classes"],
+           spec["videos"], train)
+    if key not in _SPLIT_ROOTS:
+        t0 = time.perf_counter()
+        root = tempfile.mkdtemp(prefix="chip_smoke_split_")
+        atexit.register(shutil.rmtree, root, True)
+        write_split(root, spec["frame_dir"], spec["split_dir"],
+                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
+        if train is not None:
+            write_split(root, spec["frame_dir"], spec["split_dir"], *train,
+                        SPLIT_FRAMES, SPLIT_PX, mode="train")
+        log(f"wrote the split {key} in {time.perf_counter() - t0:.1f} s")
+        _SPLIT_ROOTS[key] = root
+    return _SPLIT_ROOTS[key]
 
 
 def seeded_frames(path_lists, *args, **kwargs):
@@ -1110,7 +1147,7 @@ def check_tower_against_cpu(rec: _Recorder, int8: bool = False) -> dict:
     return res
 
 
-def profile_head(rec: _Recorder, argv, episodes: int = 20) -> dict:
+def profile_head(rec: _Recorder, argv, episodes: int = 10) -> dict:
     """Where the head's time goes: ``episodes`` head forwards of the main
     path (bf16, as evaluated) under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
@@ -1222,16 +1259,12 @@ def phase_main_path(name: str, device: str = "cuda", extra_opts=(),
         "against the JAX package by the CPU tests")
     on_gpu = torch.device(device).type == "cuda"
     counters = _counters()
+    data = split_root(spec)
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_split(root, spec["frame_dir"], spec["split_dir"],
-                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
-        log(f"main path {name}: wrote {spec['classes'] * spec['videos']} "
-            f"videos in {time.perf_counter() - t0:.1f} s")
-        argv = ["--cfg", spec["cfg"], "--splits-root", root,
+        argv = ["--cfg", spec["cfg"], "--splits-root", data,
                 "--allow-random-weights", "--device", device,
                 "TEST.ONLY_TEST=true", f"TEST.TEST_EPISODES={episodes}",
-                f"DATA.DATA_DIR={root}",
+                f"DATA.DATA_DIR={data}",
                 f"CHECKPOINT.CHECKPOINT_DIR={os.path.join(root, 'ckpt')}",
                 *spec["opts"], *extra_opts]
         rec = _Recorder()
@@ -1392,14 +1425,13 @@ def phase_uncached_path(name: str) -> dict:
 
     spec = PATHS[UNCACHED_PATHS[name]]
     counters = _counters()
+    data = split_root(spec)
     with tempfile.TemporaryDirectory() as root:
-        write_split(root, spec["frame_dir"], spec["split_dir"],
-                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
-        argv = ["--cfg", spec["cfg"], "--splits-root", root,
+        argv = ["--cfg", spec["cfg"], "--splits-root", data,
                 "--allow-random-weights", "--device", "cuda",
                 "TEST.ONLY_TEST=true", "TEST.CACHE_FEATURES=false",
                 f"TEST.TEST_EPISODES={UNCACHED_EPISODES}",
-                f"DATA.DATA_DIR={root}",
+                f"DATA.DATA_DIR={data}",
                 f"CHECKPOINT.CHECKPOINT_DIR={os.path.join(root, 'ckpt')}",
                 *spec["opts"]]
         rec = _EvalRecorder()
@@ -1451,18 +1483,20 @@ def phase_uncached_path(name: str) -> dict:
     return out
 
 
-def check_model_against_cpu(learner, cfg) -> dict:
+def check_model_against_cpu(learner, cfg, ep=None,
+                            keys=("logits",)) -> dict:
     """The whole model in evaluation mode on the card (fp32 weights, no
     autocast, no TF32 in cuBLAS or cuDNN) against a CPU copy over one test
-    episode (the eval transform on each side): max abs logit difference
-    <= MODEL_TOL times the largest logit, or than 1."""
+    episode (``ep``, or the first of the seeded test stream; the eval
+    transform on each side): for each output of ``keys`` the max abs
+    difference <= MODEL_TOL times its largest value, or than 1."""
     import copy
 
     import numpy as np
 
     from clipspm_tpu_torch.data.transforms import episode_device_transform
 
-    ep = _seeded_episodes(cfg, False, 1)[0]
+    ep = ep or _seeded_episodes(cfg, False, 1)[0]
     gpu = learner.model.eval()
     cpu_model = copy.deepcopy(gpu).cpu().float()
     dtype, gpu.compute_dtype = gpu.compute_dtype, None
@@ -1485,20 +1519,27 @@ def check_model_against_cpu(learner, cfg) -> dict:
                 labels = [torch.from_numpy(np.asarray(x)).to(dev) for x in (
                     ep.support_labels, ep.real_support_labels,
                     ep.real_target_labels)]
-                outs.append(model(*frames, *labels,
-                                  learner.text_train.to(dev),
-                                  learner.text_test.to(dev))["logits"].cpu())
+                res = model(*frames, *labels, learner.text_train.to(dev),
+                            learner.text_test.to(dev))
+                outs.append({k: res[k].cpu() for k in keys})
     finally:
         gpu.compute_dtype = dtype
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
-    err, scale = (outs[0] - outs[1]).abs().max().item(), \
-        outs[1].abs().max().item()
-    out = {"episodes": 1, "logits_shape": list(outs[1].shape),
-           "max_abs_diff": err, "max_abs_logit": scale,
-           "tol_of_max_or_1": MODEL_TOL}
-    if not err <= MODEL_TOL * max(scale, 1.0):
-        raise AssertionError(f"the model on the card vs the CPU: {out}")
+    out, bad = {"episodes": 1, "tol_of_max_or_1": MODEL_TOL}, []
+    for k in keys:
+        err, scale = (outs[0][k] - outs[1][k]).abs().max().item(), \
+            outs[1][k].abs().max().item()
+        # the logits under their earlier names, any other output by its own
+        names = (("logits_shape", "max_abs_diff", "max_abs_logit")
+                 if k == "logits" else
+                 (f"{k}_shape", f"{k}_max_abs_diff", f"{k}_max_abs"))
+        out.update(zip(names, (list(outs[1][k].shape), err, scale)))
+        if not err <= MODEL_TOL * max(scale, 1.0):
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"the model on the card vs the CPU ({bad}): "
+                             f"{out}")
     return out
 
 
@@ -1513,12 +1554,11 @@ def phase_uncached_equals_cached() -> dict:
     spec = PATHS["clipspm"]
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
+    data = split_root(spec)
     with tempfile.TemporaryDirectory() as root:
-        write_split(root, spec["frame_dir"], spec["split_dir"],
-                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
-        cfg = load_config(spec["cfg"], splits_root=root, opts=[
+        cfg = load_config(spec["cfg"], splits_root=data, opts=[
             *spec["opts"], "USE_AMP=false", "TEST.ONLY_TEST=true",
-            f"DATA.DATA_DIR={root}",
+            f"DATA.DATA_DIR={data}",
             f"CHECKPOINT.CHECKPOINT_DIR={os.path.join(root, 'ckpt')}"])
         with _Recorder().installed():
             learner = build_learner(cfg, log_fn=log, device="cuda",
@@ -1625,15 +1665,15 @@ TRAIN_PATHS = {
     "molo-train": dict(
         eval_path="molo", train_classes=70, train_videos=5,
         launches={"K1": 0, "K2": 0}, check=None, grad_factor=10.0,
-        fp64_on_card=True),
+        fp64_on_card=True, conditioned=True),
 }
 # (cut from 40 train episodes, a validation and a checkpoint at 32 and 100
 # validation and ONLY_TEST episodes, to make room for the tower's switches
 # and the remat policies, then the validation and ONLY_TEST to 20 episodes
-# for phase ddp: still one full step and one masked partial step where
-# TASKS_PER_BATCH is 16)
+# for phase ddp, then to 10 and the training to 20 for phase extras: still
+# one full step and one masked partial step where TASKS_PER_BATCH is 16)
 TRAIN_EPISODES, VAL_FREQ, SAVE_FREQ, VAL_EPISODES, PRINT_FREQ = \
-    24, 16, 16, 20, 8
+    20, 16, 16, 10, 8
 # the profiled optimizer step's episodes (per-episode figures; cut from 2
 # for phase ddp)
 PROFILE_EPISODES = 1
@@ -1684,6 +1724,131 @@ TRAIN_CHECK_TOL = 1e-4
 # convolutions, whose own fp32 error (above) the factor now need not
 # carry.
 HEAD_GRAD_TOL, HEAD_GRAD_FACTOR = 1e-4, 2.0
+# molo's head gradients in fp32 are set by their conditioning, not by the
+# CPU's luck: its learned scales multiply sums of 1 - cos over nearly
+# collinear frames against softmax residuals that cancel over the classes,
+# and its motion stream is built from frame differences, so fp32 rounding
+# anywhere upstream moves them by up to tens of percent (on an H100 80GB
+# HBM3 at 700 W, scale_motion's fp32 gradient 0.19 from fp64 on the card
+# and 5.5 on the CPU in one run, the motion convolutions' 2e-4 and 8e-6 in
+# another), and a single CPU run may be far luckier than the card's (scale
+# 7.7e-3 on the card against 3.0e-4 on the CPU in one run, where others
+# passed). So each molo tensor may also take COND_FACTOR times its
+# conditioning: the largest spread of the card's fp64 gradient over
+# COND_DRAWS runs in which every op rounds as fp32 rounds (_Fp32Rounding:
+# each result by one rounding, a reduction's inputs by one and its result
+# by sqrt(K) for K terms), from the unrounded fp64 gradient; the card's
+# fp32 error measured at most 1.09 times that spread over six runs
+# (PERF.md). Faults stay caught by the card's fp64 gradients, which must
+# equal the CPU's within CARD_FP64_TOL (a copy whose head detaches scale
+# on the card fails there), and by every well-conditioned tensor's fp32
+# bound. One draw for each kind of op alone (ROUNDING_KINDS) says where the
+# conditioning comes from.
+COND_DRAWS, COND_FACTOR = 2, 30.0
+ROUNDING_KINDS = ("conv", "matmul", "reduction", "elementwise")
+
+
+# ops whose result fp32 gives exactly (selections, moves, fills): not
+# rounded (a min's backward finds its argument by equality with it)
+_EXACT_OPS = ("amin", "amax", "max", "min", "sort", "topk", "median",
+              "where", "clamp", "relu", "threshold", "abs", "neg", "copy",
+              "clone", "_to_copy", "cat", "stack", "index_select", "gather",
+              "select", "slice", "fill", "zero", "empty", "ones", "full",
+              "new_", "constant_pad", "masked_fill", "scatter", "expand",
+              "repeat", "t", "transpose", "permute", "view", "reshape",
+              "detach", "alias", "unsqueeze", "squeeze")
+
+
+def _op_kind(func):
+    """The kind of an aten op for _Fp32Rounding: None (exact in fp32),
+    conv, matmul, reduction or elementwise."""
+    name = func.__name__.split(".")[0]
+    if name.startswith(_EXACT_OPS) and not name.startswith("index_add"):
+        return None
+    if "conv" in name:
+        return "conv"
+    if name in ("mm", "bmm", "addmm", "baddbmm", "addbmm", "dot"):
+        return "matmul"
+    if any(r in name for r in ("sum", "mean", "norm", "softmax", "var",
+                               "std", "cumsum", "index_add")):
+        return "reduction"
+    return "elementwise"
+
+
+try:
+    from torch.utils._python_dispatch import TorchDispatchMode
+except ImportError:      # very old torch: the conditioning draws need it
+    TorchDispatchMode = object
+
+
+class _Fp32Rounding(TorchDispatchMode):
+    """fp64 arithmetic rounded as fp32 rounds (relative 2^-24 steps, random
+    signs; seeded): every floating op's result by one step, a reduction's
+    (sum, norm, matmul, convolution) inputs by one and its result by
+    sqrt(K) for K terms; ops of ``kind`` alone when given; views and exact
+    ops are left alone, in-place ops move their result in place."""
+
+    def __init__(self, device, seed: int, kind=None):
+        super().__init__()
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.kind = kind
+
+    def _move(self, t, k: float = 1.0):
+        """The factors ``1 +- sqrt(k) 2^-24`` of ``t``'s elements."""
+        sign = torch.randint(0, 2, t.shape, device=t.device,
+                             generator=self.gen, dtype=t.dtype) * 2 - 1
+        return sign.mul_(math.sqrt(k) * 2.0 ** -24).add_(1)
+
+    def _moved(self, x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float64 \
+                and x.numel():
+            return x * self._move(x)
+        return x
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        schema = func._schema
+        kind = _op_kind(func)
+        active = kind is not None and self.kind in (None, kind) and \
+            schema.returns and not any(
+                r.alias_info is not None and not r.alias_info.is_write
+                for r in schema.returns)
+        if active and kind != "elementwise":
+            # a sum of K terms rounds its partial sums: to first order the
+            # terms each rounded (the inputs it reads, not those it writes)
+            written = {a.name for a in schema.arguments
+                       if a.alias_info is not None and a.alias_info.is_write}
+            names = [a.name for a in schema.arguments]
+            args = tuple(a if i < len(names) and names[i] in written
+                         else self._moved(a) for i, a in enumerate(args))
+            kwargs = {k: v if k in written else self._moved(v)
+                      for k, v in kwargs.items()}
+        out = func(*args, **kwargs)
+        if not active:
+            return out
+        # a reduction of K terms rounds K partial sums: sqrt(K) roundings of
+        # its result in a random walk, K from the sizes (a product's inner
+        # dimension, a sum's terms an output)
+        sizes = sorted((a.numel() for a in (*args, *kwargs.values())
+                        if isinstance(a, torch.Tensor)
+                        and a.is_floating_point()), reverse=True)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        moved = []
+        for i, t in enumerate(outs):
+            if not (isinstance(t, torch.Tensor) and t.dtype == torch.float64
+                    and t.numel()):
+                moved.append(t)
+                continue
+            k = 1.0
+            if kind != "elementwise" and sizes:
+                k = max(1.0, (sizes[0] * sizes[1] / t.numel()) ** 0.5
+                        if len(sizes) > 1 else sizes[0] / t.numel())
+            if schema.returns[i].alias_info is not None:
+                moved.append(t.mul_(self._move(t, k)))    # in place
+            else:
+                moved.append(t * self._move(t, k))
+        return type(out)(moved) if isinstance(out, (tuple, list)) \
+            else moved[0]
 # molo (no kernel) also runs its head in fp64 on the card: each gradient
 # equal to the CPU's fp64 one within this (relative L2 per tensor). fp64
 # rounding, amplified by the cancelling sums above, stays far below it; a
@@ -1997,18 +2162,22 @@ def check_train_step_against_cpu(cfg_path: str, opts, check: dict) -> dict:
 
 def check_head_grads_against_cpu(learner, cfg,
                                  factor: float = HEAD_GRAD_FACTOR,
-                                 fp64_on_card: bool = False) -> dict:
+                                 fp64_on_card: bool = False, ep=None,
+                                 conditioned: bool = False) -> dict:
     """The trained head's parameter and input gradients on the card (fp32,
     TF32 off) and on a CPU copy (fp32) against the CPU copy's in fp64, over
-    one train
-    episode's features (the tower in eval mode on the card; for molo, which
-    has no cacheable features, the trunk's maps and the clips), train mode
+    one train episode's features (``ep``, or the first of the seeded train
+    stream; the tower in eval mode on the card, each role's pixels with
+    cpm2c's prompts where they are on; for molo, which has no cacheable
+    features, the trunk's maps and the clips), train mode
     with dropout's modules in eval mode, the dispatch's train loss; a tensor
     whose gradient is 0 in fp64 (a stream weighted 0, a branch no loss
     reads) must be 0 on the card too. With ``fp64_on_card`` (a head with no
     fp32 kernel) the card also runs in fp64, and each of its gradients must
     equal the CPU's fp64 one within CARD_FP64_TOL: the same function on
-    both devices, whatever fp32 rounding does to a cancelling sum."""
+    both devices, whatever fp32 rounding does to a cancelling sum. With
+    ``conditioned`` (and ``fp64_on_card``) every tensor may also take the
+    bound its conditioning sets (COND_FACTOR)."""
     import copy
 
     import numpy as np
@@ -2017,7 +2186,7 @@ def check_head_grads_against_cpu(learner, cfg,
     from clipspm_tpu_torch.models.visual import encode_frames
     from clipspm_tpu_torch.train.losses import loss_and_acc
 
-    ep = _seeded_episodes(cfg, True, 1)[0]
+    ep = ep or _seeded_episodes(cfg, True, 1)[0]
     gpu = learner.model
     dtype, gpu.compute_dtype = gpu.compute_dtype, None
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -2036,7 +2205,9 @@ def check_head_grads_against_cpu(learner, cfg,
                 img_size=t.img_size, resize_to=t.resize_to,
                 normalize=t.normalize)
                 for x in (ep.support_images, ep.target_images)]
-            if cached:
+            if hasattr(gpu, "encode_episode"):
+                feats = [f.float() for f in gpu.encode_episode(*frames)]
+            elif cached:
                 feats = [gpu.encode(f).float() for f in frames]
             else:
                 both = torch.cat(frames)
@@ -2046,13 +2217,23 @@ def check_head_grads_against_cpu(learner, cfg,
             ep.support_labels, ep.real_support_labels,
             ep.real_target_labels, ep.target_labels)]
         cpu = torch.device("cpu")
-        for side, model, dev, dt in (
-                ("card", gpu, learner.device, torch.float32),
-                ("cpu", cpu_model, cpu, torch.float32),
+        card64 = copy.deepcopy(gpu).double() if fp64_on_card else None
+        # the conditioning draws: the card's fp64 head with every op's
+        # result rounded as fp32 would round it (all ops, then each kind
+        # alone, where the error comes from)
+        rounded = ([(f"card fp64 rounded {i}", None) for i in
+                    range(COND_DRAWS)] + [(f"card fp64 rounded {kind}", kind)
+                                          for kind in ROUNDING_KINDS]
+                   if conditioned else [])
+        for side, model, dev, dt, kind in (
+                ("card", gpu, learner.device, torch.float32, None),
+                ("cpu", cpu_model, cpu, torch.float32, None),
                 ("fp64", copy.deepcopy(cpu_model).double(), cpu,
-                 torch.float64),
-                *([("card fp64", copy.deepcopy(gpu).double(), learner.device,
-                    torch.float64)] if fp64_on_card else [])):
+                 torch.float64, None),
+                *([("card fp64", card64, learner.device, torch.float64,
+                    None)] if fp64_on_card else []),
+                *[(side, card64, learner.device, torch.float64, kind)
+                  for side, kind in rounded]):
             model.train()
             for m in model.modules():
                 if isinstance(m, torch.nn.Dropout):
@@ -2061,11 +2242,15 @@ def check_head_grads_against_cpu(learner, cfg,
             a, b = [f.detach().to(dev, dt).clone().requires_grad_(True)
                     for f in feats]
             sl, rs, rt, tl = [x.to(dev) for x in labels]
+            noise = (_Fp32Rounding(dev, len(grads), kind)
+                     if side.startswith("card fp64 rounded")
+                     else contextlib.nullcontext())
             # PyTorch's own CUDA convolutions (im2col and a cuBLAS GEMM),
             # not cuDNN's: the fp32 algorithms cuDNN picks for molo's
             # convolutions put the trunk maps' gradient 7.6e-4 from fp64
             # where the CPU's was 1.4e-6 (the path itself runs cuDNN)
-            with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            with torch.backends.cudnn.flags(enabled=False, allow_tf32=False), \
+                    noise:
                 out = (model.match_features(a, b, sl, rs, rt,
                                             learner.text_train.to(dev, dt),
                                             learner.text_test.to(dev, dt))
@@ -2095,7 +2280,7 @@ def check_head_grads_against_cpu(learner, cfg,
         return float((a - b).norm() / b.norm())
 
     card, cpu, ref = grads["card"], grads["cpu"], grads["fp64"]
-    rows, bad, zero = [], [], 0
+    rows, bad, zero, cond = [], [], 0, {}
     if not set(card) == set(cpu) == set(ref) or not ref:
         bad.append(f"gradient tensors differ: {sorted(set(card) ^ set(ref))}")
     for k in sorted(set(card) & set(cpu) & set(ref)):
@@ -2106,8 +2291,20 @@ def check_head_grads_against_cpu(learner, cfg,
             continue
         err, cpu_err = rel(card[k], ref[k]), rel(cpu[k], ref[k])
         rows.append((err, cpu_err, rel(card[k], cpu[k]), k))
-        if not err <= max(factor * cpu_err, HEAD_GRAD_TOL):
-            bad.append(f"{k} {err:.3e} (CPU fp32 {cpu_err:.3e})")
+        bound = max(factor * cpu_err, HEAD_GRAD_TOL)
+        if conditioned:
+            exact = grads["card fp64"][k]
+            spread = max(rel(grads[f"card fp64 rounded {i}"][k], exact)
+                         for i in range(COND_DRAWS))
+            bound = max(bound, COND_FACTOR * spread)
+            cond[k] = {"card": err, "cpu": cpu_err, "spread": spread,
+                       "bound": bound, **{
+                           f"spread_{kind}": rel(grads[
+                               f"card fp64 rounded {kind}"][k], exact)
+                           for kind in ROUNDING_KINDS}}
+        if not err <= bound:
+            bad.append(f"{k} {err:.3e} (CPU fp32 {cpu_err:.3e}, bound "
+                       f"{bound:.3e})")
     fp64_errs = sorted(((rel(grads["card fp64"][k], ref[k]), k)
                         for k in ref if ref[k].any()), reverse=True) \
         if fp64_on_card else []
@@ -2126,6 +2323,11 @@ def check_head_grads_against_cpu(learner, cfg,
         out["card_fp64_vs_cpu_fp64_worst"] = [[k, e] for e, k in
                                               fp64_errs[:4]]
         out["card_fp64_tol"] = CARD_FP64_TOL
+    if conditioned:
+        # the tensors whose fp32 error is most of their bound
+        out["conditioned_worst"] = dict(sorted(
+            cond.items(), key=lambda kv: -kv[1]["card"] / kv[1]["bound"])[:6])
+        out["cond_factor"] = COND_FACTOR
     log(json.dumps({"head_grads_vs_cpu": out}))
     if bad:
         raise AssertionError("head gradients on the card vs the CPU: "
@@ -2142,20 +2344,11 @@ def phase_train_path(name: str) -> dict:
     counters = _counters()
     log(f"train path {name}: frames come from the same seeded uint8 "
         "source after the decode stage as the eval paths")
+    data = split_root(spec, (run["train_classes"], run["train_videos"]))
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_split(root, spec["frame_dir"], spec["split_dir"],
-                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
-        write_split(root, spec["frame_dir"], spec["split_dir"],
-                    run["train_classes"], run["train_videos"], SPLIT_FRAMES,
-                    SPLIT_PX, mode="train")
-        log(f"train path {name}: wrote "
-            f"{run['train_classes'] * run['train_videos']} train and "
-            f"{spec['classes'] * spec['videos']} test videos in "
-            f"{time.perf_counter() - t0:.1f} s")
         ckpt = os.path.join(root, "ckpt")
-        flags = ["--cfg", spec["cfg"], "--splits-root", root]
-        opts = [*spec["opts"], *run.get("opts", ()), f"DATA.DATA_DIR={root}",
+        flags = ["--cfg", spec["cfg"], "--splits-root", data]
+        opts = [*spec["opts"], *run.get("opts", ()), f"DATA.DATA_DIR={data}",
                 f"CHECKPOINT.CHECKPOINT_DIR={ckpt}"]
         train_opts = [*opts, "TEST.ONLY_TEST=false",
                       f"TRAIN.TRAIN_EPISODES={TRAIN_EPISODES}",
@@ -2176,7 +2369,7 @@ def phase_train_path(name: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         learner, val_launches = rec.learner, rec.val_launches
         build_seconds = learner.build_seconds
-        cfg = load_config(spec["cfg"], opts=train_opts, splits_root=root)
+        cfg = load_config(spec["cfg"], opts=train_opts, splits_root=data)
         tpb = learner.tasks_per_batch
 
         recs = _read_jsonl(os.path.join(ckpt, "metrics.jsonl"))
@@ -2218,7 +2411,8 @@ def phase_train_path(name: str) -> dict:
             t0 = time.perf_counter()
             check = check_head_grads_against_cpu(
                 learner, cfg, run.get("grad_factor", HEAD_GRAD_FACTOR),
-                fp64_on_card=run.get("fp64_on_card", False))
+                fp64_on_card=run.get("fp64_on_card", False),
+                conditioned=run.get("conditioned", False))
             stage_seconds["check"] = time.perf_counter() - t0
         del learner, rec
 
@@ -2297,9 +2491,9 @@ def phase_train_path(name: str) -> dict:
 # train's train profile.
 REMAT_PATHS = {"clipspm-vit-train-attn": "attn",
                "clipspm-vit-train-mlp": "mlp"}
-# one step of 8 (a trailing partial step of TASKS_PER_BATCH 16; cut from
-# one full step of 16 for phase ddp)
-REMAT_EPISODES = 8
+# one step of 4 (a trailing partial step of TASKS_PER_BATCH 16; cut from
+# one full step of 16 for phase ddp, then from 8 for phase extras)
+REMAT_EPISODES = 4
 REMAT_GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
 BF16_GRAD_TOL = 4 * 2.0 ** -8
 
@@ -2420,16 +2614,12 @@ def phase_remat_path(name: str) -> dict:
     run = TRAIN_PATHS["clipspm-vit-train"]
     spec = PATHS[run["eval_path"]]
     counters = _counters()
+    data = split_root(spec, (run["train_classes"], run["train_videos"]))
     with tempfile.TemporaryDirectory() as root:
-        write_split(root, spec["frame_dir"], spec["split_dir"],
-                    spec["classes"], spec["videos"], SPLIT_FRAMES, SPLIT_PX)
-        write_split(root, spec["frame_dir"], spec["split_dir"],
-                    run["train_classes"], run["train_videos"], SPLIT_FRAMES,
-                    SPLIT_PX, mode="train")
         ckpt = os.path.join(root, "ckpt")
-        argv = ["--cfg", spec["cfg"], "--splits-root", root,
+        argv = ["--cfg", spec["cfg"], "--splits-root", data,
                 "--allow-random-weights", *spec["opts"],
-                f"MODEL.TRAIN_REMAT_POLICY={policy}", f"DATA.DATA_DIR={root}",
+                f"MODEL.TRAIN_REMAT_POLICY={policy}", f"DATA.DATA_DIR={data}",
                 f"CHECKPOINT.CHECKPOINT_DIR={ckpt}", "TEST.ONLY_TEST=false",
                 f"TRAIN.TRAIN_EPISODES={REMAT_EPISODES}", "TRAIN.VAL_FREQ=0",
                 "CHECKPOINT.SAVE_FREQ=0", f"TRAIN.PRINT_FREQ={REMAT_EPISODES}"]
@@ -2491,17 +2681,17 @@ def phase_remat_path(name: str) -> dict:
 # and ends, freeing its memory, before they start; each process runs the
 # checks below in turn, freeing the card's memory between them. Frames are
 # the seeded source after the decode stage, as above.
-# - clipspm-vit-train and ta2n-train: a step of 16 episodes and a masked
-#   step of 8 (the trailing partial batch) at fp32, TF32 off (the config's
+# - clipspm-vit-train and ta2n-train: a step of 8 episodes and a masked
+#   step of 4 (the trailing partial batch) at fp32, TF32 off (the config's
 #   model with its autocast off): each episode's loss, and the parameters
 #   and every BatchNorm buffer after each step, at DDP_STATE_TOL; K1 (3 an
-#   episode, 48 over the ranks in the first step) and K2 (1 an episode)
+#   episode, 24 over the ranks in the first step) and K2 (1 an episode)
 #   counted over the ranks; then a 2-episode warm-up and a timed
-#   8-episode step at the config's AMP (bf16, TF32 on) at N=2 on one card
+#   4-episode step at the config's AMP (bf16, TF32 on) at N=2 on one card
 #   beside N=1 (the oracle), the all-reduces' seconds and each process's
 #   peak memory. clipspm-train (RN50, 44.7 GB a rank) does not fit twice.
-# - clipspm RN50 evaluation: the uncached evaluator (64 episodes, 32 a step,
-#   16 a rank) and the feature-cached one (50 episodes) at N=2 against N=1
+# - clipspm RN50 evaluation: the uncached evaluator (32 episodes, one step,
+#   16 a rank) and the feature-cached one (24 episodes) at N=2 against N=1
 #   (the config's AMP): per-episode loss and accuracy equal, the gathered
 #   table within DDP_TABLE_TOL of N=1's, accuracy and CI equal. N=1 encodes
 #   DDP_ENCODE_VIDEOS a step, each rank as many (the same batch shape).
@@ -2510,11 +2700,16 @@ def phase_remat_path(name: str) -> dict:
 #   same paths' train losses and ONLY_TEST accuracy through the CLI over
 #   NCCL at NUM_CHIPS=2 against 1, within 1e-3.
 DDP_TRAIN_PATHS = ("clipspm-vit-train", "ta2n-train")
-DDP_STEPS = (16, 8)
-DDP_TIMED = (2, 8)
+# (cut from steps of 16 and 8, a timed step of 8, 64 uncached and 50 cached
+# episodes, to make room for phase extras; an even count, so each of the
+# two ranks runs half)
+DDP_STEPS = (8, 4)
+# (the warm-up a multiple of the two ranks: each rank's loader shards the
+# stream in rounds of one episode a rank)
+DDP_TIMED = (2, 4)
 DDP_STATE_TOL = dict(rtol=1e-4, atol=1e-5)
 DDP_LOSS_TOL = 1e-4
-DDP_EVAL_EPISODES, DDP_CACHED_EPISODES, DDP_ENCODE_VIDEOS = 64, 50, 15
+DDP_EVAL_EPISODES, DDP_CACHED_EPISODES, DDP_ENCODE_VIDEOS = 32, 24, 15
 # the table under AMP on the card: batches of the same shape on both sides,
 # so equal but for an algorithm change between processes: two bf16 ulps of
 # the largest feature
@@ -2972,7 +3167,8 @@ TP_LOSS_TOL = 1e-6
 # (tensors whose L2 norm is above 1e-6, as tests/test_torch_ddp.py holds
 # gradients; a fault, such as a sum over the wrong group, is off by O(1))
 TP_REPLICA_GRAD_TOL = 1e-4
-TP_EVAL_EPISODES, TP_EVAL_TOL = 16, 1e-5
+# (cut from 16 for phase extras)
+TP_EVAL_EPISODES, TP_EVAL_TOL = 8, 1e-5
 
 
 def _cpu_tree(tree):
@@ -3333,6 +3529,350 @@ def phase_tp(tmp: str) -> dict:
     return out
 
 
+# Phase extras: the JAX package's last modules on the card.
+# (a) cpm2c-extras: cpm2c built with both of the JAX package's constructor
+#     flags that no config key sets (use_visual_prompts, use_video_adapter),
+#     on configs/cpm2c/hmdb.yaml's
+#     layout (CLIP RN50, D=1024, bf16 under USE_AMP; 5-way 1-shot, 1 test
+#     and 4 train queries, 8 frames of 224), random weights from MODEL.SEED
+#     and seeded random text tables, handed to the port's Learner over two
+#     SyntheticEpisodeSource streams (224 px frames, resized and cropped):
+#     the cached route's loud fallback (the prompts make the features
+#     role-dependent), EXTRAS_EVAL_EPISODES of uncached evaluation at
+#     TEST.EVAL_BATCH, then one accumulated AMP training step of
+#     EXTRAS_TRAIN_EPISODES. K1 must launch 2 times an episode in both (the
+#     appearance stream at L=8, the motion stream at L=7), and its first
+#     launches of each are held against the plain version on their own
+#     inputs; the model's fp32 logits (every output the adapter and the
+#     prompts reach) on the card against the CPU (MODEL_TOL), and the head's
+#     gradients against the CPU and an fp64 witness.
+# (b) the temporal ResNet-50 (torchvision trunk, full width) in both modes
+#     on EXTRAS_TRUNK_FRAMES frames of 224: an eval forward on the card
+#     against the CPU (MODEL_TOL of the largest output), then one fp32
+#     train-mode forward and backward (a random weighting of the output) on
+#     the card, on the CPU and on the card in fp64 (the witness): each
+#     output, running statistic and gradient on the card within
+#     EXTRAS_TRUNK_FACTOR times the CPU's own error from the witness, or
+#     EXTRAS_TRUNK_FLOOR. Train-mode BatchNorm makes the trunk's gradients
+#     cancelling sums: on the CPU at 8 frames the fp32 gradients are up to
+#     3.9e-2 (a temporal block's BatchNorm bias) from fp64, the output 2e-4.
+# (c) each module of models/blocks_extra.py at the reference's width
+#     (D=2048, 8 frames; GroupGLKA on 2048 channels), random weights with
+#     GroupGLKA's scale nonzero, fp32 forward on the card against the CPU
+#     (MODEL_TOL of the largest output, or of 1).
+EXTRAS_EVAL_EPISODES, EXTRAS_TRAIN_EPISODES, EXTRAS_CLASSES = 64, 16, 16
+# the synthetic frames' side (the eval transform resizes to 256 and crops
+# 224, as for the splits' 256 px frames; 224 makes a fifth fewer draws)
+EXTRAS_PX = 224
+EXTRAS_TRUNK_FRAMES = 40
+EXTRAS_TRUNK_FACTOR = 4.0
+EXTRAS_TRUNK_FLOOR = {"output": 1e-3, "stat": 1e-3, "grad": 1e-2}
+EXTRAS_BLOCK_D = 2048
+
+
+def _extras_learner():
+    """cpm2c with both switches, its Learner on the card and its synthetic
+    streams."""
+    from clipspm_tpu_torch import set_matmul_precision
+    from clipspm_tpu_torch.data.synthetic import SyntheticEpisodeSource
+    from clipspm_tpu_torch.models.fsar import build_model
+    from clipspm_tpu_torch.train.learner import Learner
+    from clipspm_tpu_torch.utils.config import load_config
+    from clipspm_tpu_torch.weights import random_init_
+
+    cfg = load_config(PATHS["cpm2c"]["cfg"], opts=[
+        f"TRAIN.TASKS_PER_BATCH={EXTRAS_TRAIN_EPISODES}"])
+    set_matmul_precision(bool(cfg.USE_AMP))
+    gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED))
+    model = random_init_(build_model(cfg, use_visual_prompts=True,
+                                     use_video_adapter=True), gen)
+    text = torch.randn(2, EXTRAS_CLASSES, model.arch.embed_dim,
+                       generator=gen)
+
+    def source(queries: int, seed: int):
+        return SyntheticEpisodeSource(
+            way=int(cfg.TRAIN.WAY), shot=int(cfg.TRAIN.SHOT),
+            queries=queries, seq_len=int(cfg.DATA.SEQ_LEN),
+            img_size=EXTRAS_PX, num_classes=EXTRAS_CLASSES, seed=seed)
+
+    learner = Learner(cfg, model, text[0], text[1], torch.device("cuda"),
+                      train_source=source(int(cfg.TRAIN.QUERY_PER_CLASS), 1),
+                      test_source=source(int(cfg.TEST.QUERY_PER_CLASS), 2),
+                      log_fn=log)
+    return cfg, learner, source
+
+
+@contextlib.contextmanager
+def _k1_inputs(seen: list, keep: int = 2):
+    """Records the first ``keep`` fused K1 launches' inputs."""
+    from clipspm_tpu_torch.ops import otam_cuda
+
+    entry = otam_cuda.otam_distance_cuda
+
+    def recording(support, query, *args):
+        if len(seen) < keep:
+            seen.append((support.clone(), query.clone(), *args))
+        return entry(support, query, *args)
+
+    otam_cuda.otam_distance_cuda = recording
+    try:
+        yield seen
+    finally:
+        otam_cuda.otam_distance_cuda = entry
+
+
+def _k1_against_plain(seen: list) -> list:
+    """K1's fused mode against the plain version on recorded inputs."""
+    from clipspm_tpu_torch.ops import otam_cuda
+    from clipspm_tpu_torch.ops.otam import otam_distance_plain
+
+    rows = []
+    with torch.no_grad():
+        for support, query, *args in seen:
+            got = otam_cuda.otam_distance_cuda(support, query, *args)
+            want = otam_distance_plain(support, query, *args)
+            err = (got - want).abs().max().item()
+            rows.append({"support": list(support.shape),
+                         "query": list(query.shape), "max_abs_err": err})
+            if not err <= FUSED_TOL * max(want.abs().max().item(), 1.0):
+                raise AssertionError(f"K1 on cpm2c-extras' inputs vs the "
+                                     f"plain version: {rows[-1]}")
+    return rows
+
+
+def extras_cpm2c_path() -> dict:
+    from clipspm_tpu_torch.cli.run import _cached_evaluator
+
+    counters = _counters()
+    _fresh_peak()
+    t0 = time.perf_counter()
+    cfg, learner, source = _extras_learner()
+    build_s = time.perf_counter() - t0
+    warned = []
+    if _cached_evaluator(cfg, learner, None, None, warned.append, "") \
+            is not None or not warned[0].startswith(
+                "WARNING: TEST.CACHE_FEATURES ignored"):
+        raise AssertionError(f"cpm2c-extras took the feature cache: "
+                             f"{warned}")
+    E = int(cfg.TEST.EVAL_BATCH)
+    eval_seen, train_seen = [], []
+    with _k1_inputs(eval_seen):
+        _zero_counters(counters)
+        res = learner.evaluate(EXTRAS_EVAL_EPISODES, batch_size=E)
+        eval_launches = _read_counters(counters)
+    it = iter(learner.train_source)
+    episodes = [next(it) for _ in range(EXTRAS_TRAIN_EPISODES)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with _k1_inputs(train_seen):
+        _zero_counters(counters)
+        ev[0].record()
+        metrics = learner.train_episodes(episodes)
+        ev[1].record()
+        torch.cuda.synchronize()
+        train_launches = _read_counters(counters)
+    peak = torch.cuda.max_memory_allocated()
+    # 2 an episode: the appearance stream at L=8, the motion stream at L=7
+    want_eval = {"K1": 2 * EXTRAS_EVAL_EPISODES, "K2": 0}
+    want_train = {"K1": 2 * EXTRAS_TRAIN_EPISODES, "K2": 0}
+    if eval_launches != want_eval or train_launches != want_train:
+        raise AssertionError(f"cpm2c-extras launches: {eval_launches} in "
+                             f"evaluation, {train_launches} in training; "
+                             f"expected {want_eval}, {want_train}")
+    lengths = sorted(x[0].shape[1] for x in eval_seen + train_seen)
+    if lengths != [7, 7, 8, 8]:
+        raise AssertionError(f"K1's streams on cpm2c-extras: L={lengths}")
+    for key in ("accuracy", "confidence", "loss"):
+        if not math.isfinite(res[key]):
+            raise AssertionError(f"cpm2c-extras {key} is not finite: {res}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cpm2c-extras train step: {metrics}")
+    k1 = _k1_against_plain(eval_seen + train_seen)
+    model_err = check_model_against_cpu(
+        learner, cfg, ep=source(int(cfg.TEST.QUERY_PER_CLASS), 3).sample(),
+        keys=("logits", "logits_global", "class_logits"))
+    grads = check_head_grads_against_cpu(
+        learner, cfg, ep=source(int(cfg.TRAIN.QUERY_PER_CLASS), 4).sample())
+    step_s = ev[0].elapsed_time(ev[1]) / 1e3
+    frames = _frames_per_episode(cfg) * EXTRAS_EVAL_EPISODES
+    return {"path": "cpm2c-extras", "build_seconds": build_s,
+            "fallback": warned[0], "eval_episodes": EXTRAS_EVAL_EPISODES,
+            "eval_batch": E, "accuracy": res["accuracy"],
+            "loss": res["loss"],
+            "episodes_per_s": EXTRAS_EVAL_EPISODES / res["seconds"],
+            "encode_frames_per_s": frames / res["seconds"],
+            "host_stall_pct": 100.0 * res["host_stall_seconds"]
+            / res["seconds"],
+            "train_episodes": EXTRAS_TRAIN_EPISODES,
+            "train_step_device_seconds": step_s,
+            "train_loss": metrics["loss"],
+            "launches": {"eval": eval_launches, "train": train_launches},
+            "k1_vs_plain": k1, "model_vs_cpu": model_err,
+            "head_grads_vs_cpu": grads, "peak_memory_bytes": peak}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-300))
+
+
+def _trunk_train(model, x, ct, dev, dt) -> dict:
+    """One train-mode forward and backward of ``sum(trunk(x) * ct)``: the
+    output, the running statistics after it and every gradient (the
+    input's too), on the CPU in float64."""
+    import copy
+
+    m = copy.deepcopy(model).to(dev, dt).train()
+    xx = x.detach().to(dev, dt).clone().requires_grad_(True)
+    y = m(xx)
+    (y * ct.to(dev, dt)).sum().backward()
+    out = {"output": y.detach().cpu().double()}
+    out.update({f"stat {k}": v.detach().cpu().double()
+                for k, v in m.state_dict().items() if "running_" in k})
+    out.update({f"grad {k}": p.grad.detach().cpu().double()
+                for k, p in m.named_parameters()})
+    out["grad input"] = xx.grad.detach().cpu().double()
+    return out
+
+
+def extras_trunk_cpu(mode: str) -> tuple:
+    """The CPU's half of the temporal ResNet-50 check (fp32; it runs in a
+    thread beside the card's work): the seeded trunk, its input and output
+    weighting, its eval output, and its train side (``_trunk_train``)."""
+    from clipspm_tpu_torch.models.backbones.resnet import TorchResNet
+    from clipspm_tpu_torch.weights import random_init_
+
+    gen = torch.Generator().manual_seed(7)
+    trunk = random_init_(TorchResNet("resnet50", temporal_blocks=mode,
+                                     seq_len=SEQ_LEN), gen)
+    x = torch.rand(EXTRAS_TRUNK_FRAMES, 224, 224, 3, generator=gen)
+    ct = torch.randn(EXTRAS_TRUNK_FRAMES, 7, 7, trunk.feature_dim,
+                     generator=gen)
+    with torch.no_grad():
+        want = trunk.eval()(x)
+    return trunk, x, ct, want, _trunk_train(trunk, x, ct, torch.device(
+        "cpu"), torch.float32)
+
+
+def extras_temporal_trunk(mode: str, cpu_half: tuple) -> dict:
+    import copy
+
+    trunk, x, ct, want, cpu_side = cpu_half
+    card = torch.device("cuda")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            got = copy.deepcopy(trunk).to(card).eval()(x.to(card)).cpu()
+        sides = {"card": _trunk_train(trunk, x, ct, card, torch.float32),
+                 "cpu": cpu_side,
+                 "card fp64": _trunk_train(trunk, x, ct, card,
+                                           torch.float64)}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    eval_err, scale = (got - want).abs().max().item(), \
+        want.abs().max().item()
+    bad = [] if eval_err <= MODEL_TOL * scale else [
+        f"eval forward {eval_err:.3e} of {scale:.3e}"]
+    worst = {}
+    ref = sides["card fp64"]
+    for k in ref:
+        kind = k.split(" ")[0]
+        err, cpu_err = _rel(sides["card"][k], ref[k]), \
+            _rel(sides["cpu"][k], ref[k])
+        if not err <= max(EXTRAS_TRUNK_FACTOR * cpu_err,
+                          EXTRAS_TRUNK_FLOOR[kind]):
+            bad.append(f"{k} {err:.3e} (CPU {cpu_err:.3e})")
+        if err > worst.get(kind, ("", 0.0))[1]:
+            worst[kind] = (k, err, cpu_err)
+    out = {"mode": mode, "frames": EXTRAS_TRUNK_FRAMES,
+           "eval_max_abs_diff": eval_err, "eval_max_abs": scale,
+           "train_worst_vs_fp64_card_cpu": {
+               kind: list(v) for kind, v in worst.items()},
+           "tensors": len(ref), "seconds": time.perf_counter() - t0}
+    if bad:
+        raise AssertionError(f"temporal ResNet-50 ({mode}) on the card vs "
+                             f"the CPU: " + "; ".join(bad[:8]))
+    return out
+
+
+def extras_blocks() -> dict:
+    import copy
+
+    from clipspm_tpu_torch.models import blocks_extra as bx
+    from clipspm_tpu_torch.weights import random_init_
+
+    D, T, way = EXTRAS_BLOCK_D, SEQ_LEN, 5
+    gen = torch.Generator().manual_seed(8)
+    qu = torch.randn(way * T, D, generator=gen)
+    su = torch.randn(way * T, D, generator=gen)
+    labels = torch.randperm(way, generator=gen)
+    tok = torch.randn(2, T, D, generator=gen)
+    maps = torch.randn(2, 7, 7, D, generator=gen)
+    cases = {"AttentionV3": (bx.AttentionV3(D), (tok, tok.flip(1), tok)),
+             "Mo1": (bx.Mo1(D, way, T), (qu, su, labels)),
+             "Mo2": (bx.Mo2(D, way, T), (qu, su, labels)),
+             "Mo22": (bx.Mo22(D, T), (qu, su)),
+             "TGroup": (bx.TGroup(D, way, T), (qu, su, labels)),
+             "PositionalEncoderV2": (bx.PositionalEncoderV2(D), (tok,)),
+             "GroupGLKA": (bx.GroupGLKA(D), (maps,))}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, (module, inputs) in cases.items():
+            module = random_init_(module, gen).eval()
+            if name == "GroupGLKA":
+                # 0 at init, where the block is its input
+                with torch.no_grad():
+                    module.scale.uniform_(0.5, 1.5, generator=gen)
+            with torch.no_grad():
+                want = module(*inputs)
+                got = copy.deepcopy(module).cuda()(
+                    *[x.cuda() for x in inputs])
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            err = max((g.cpu() - w).abs().max().item()
+                      for g, w in zip(got, want))
+            scale = max(w.abs().max().item() for w in want)
+            out[name] = {"shape": [list(w.shape) for w in want],
+                         "max_abs_diff": err, "max_abs": scale}
+            if not err <= MODEL_TOL * max(scale, 1.0):
+                raise AssertionError(f"{name} on the card vs the CPU: "
+                                     f"{out[name]}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return out
+
+
+def phase_extras() -> dict:
+    t0 = time.perf_counter()
+    modes = ("bottleneck", "stage")
+    # the temporal trunks' CPU halves run in a thread beside the card's
+    # cpm2c path (the host's cores are idle there but for the episodes'
+    # draws)
+    with cf.ThreadPoolExecutor(max_workers=1) as pool:
+        cpu_halves = [pool.submit(extras_trunk_cpu, mode) for mode in modes]
+        out = {"cpm2c-extras": extras_cpm2c_path()}
+        out["cpm2c_seconds"] = time.perf_counter() - t0
+        _fresh_peak()
+        out["temporal_resnet50"] = [
+            extras_temporal_trunk(mode, half.result())
+            for mode, half in zip(modes, cpu_halves)]
+    out["blocks_extra"] = extras_blocks()
+    out["trunk_and_blocks_peak_memory_bytes"] = \
+        torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"extras": out}))
+    return out
+
+
 def main() -> int:
     seconds = {}
 
@@ -3353,6 +3893,7 @@ def main() -> int:
     evals.update({name: timed(name, phase_uncached_path, name)
                   for name in UNCACHED_PATHS})
     timed("uncached=cached", phase_uncached_equals_cached)
+    extras = timed("extras", phase_extras)
     trains = {name: timed(name, phase_train_path, name)
               for name in TRAIN_PATHS}
     remats = {name: timed(name, phase_remat_path, name)
@@ -3369,6 +3910,9 @@ def main() -> int:
                for stage in ("train", "val", "only_test")},
             **{f"{name} (train)": r["launches"][k]
                for name, r in remats.items()},
+            **{f"cpm2c-extras ({stage})":
+               extras["cpm2c-extras"]["launches"][stage][k]
+               for stage in ("eval", "train")},
             **{f"ddp {name} (ranks, first step of {DDP_STEPS[0]})":
                sum(r["launches_step_1"].get(k, [0]))
                for name, r in ddp["train"].items()},

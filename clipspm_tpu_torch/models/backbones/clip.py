@@ -154,6 +154,11 @@ class FP32BatchNorm2d(FP32BatchNorm, nn.BatchNorm2d):
     """BatchNorm over ``[N, C, H, W]`` (:class:`FP32BatchNorm`)."""
 
 
+class FP32BatchNorm3d(FP32BatchNorm, nn.BatchNorm3d):
+    """BatchNorm over ``[N, C, T, H, W]`` (:class:`FP32BatchNorm`), the
+    running variance biased over ``N*T*H*W``."""
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 

@@ -13,6 +13,12 @@ inside the trunk (the permuted view keeps NHWC strides, which cuDNN runs as
 channels-last); the spatial output is NHWC ``[N, h, w, C]``. BatchNorm
 computes in fp32 whatever the compute dtype, so the trunk's output is fp32
 under bf16 autocast, as the JAX trunk's is.
+
+``temporal_blocks`` gives the reference's experimental temporal ResNets:
+``"bottleneck"`` a temporal-excitation ``Blk`` (``temporal_excitation.py``)
+in every bottleneck (``blk``, then ``bn4`` and a ReLU, after the 3x3 conv),
+``"stage"`` one ``Blk`` after stage 2 and one after stage 3 (``blk_1``,
+``blk_2``). Their frames are whole clips of ``seq_len``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .clip import FP32BatchNorm2d
+from .temporal_excitation import Blk
 
 RESNET_LAYERS = {
     "resnet18": (2, 2, 2, 2),
@@ -42,17 +49,28 @@ def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
                                       ("1", FP32BatchNorm2d(cout))]))
 
 
+def blk_nchw(blk: Blk, x: torch.Tensor) -> torch.Tensor:
+    """A ``Blk`` (NHWC frames) inside the channels-first trunk."""
+    return blk(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 class TVBottleneck(nn.Module):
-    """torchvision Bottleneck: 1x1 -> 3x3(stride) -> 1x1, expansion 4."""
+    """torchvision Bottleneck: 1x1 -> 3x3(stride) -> 1x1, expansion 4.
+    ``temporal``: ``relu(bn4(blk(h)))`` after the 3x3 conv (the reference's
+    ``newBottleneck``)."""
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 temporal: bool = False, seq_len: int = 8):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = _conv(inplanes, planes, 1)
         self.bn1 = FP32BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride)
         self.bn2 = FP32BatchNorm2d(planes)
+        if temporal:
+            self.blk = Blk(planes, seq_len)
+            self.bn4 = FP32BatchNorm2d(planes)
         self.conv3 = _conv(planes, out_ch, 1)
         self.bn3 = FP32BatchNorm2d(out_ch)
         self.downsample = (_downsample(inplanes, out_ch, stride)
@@ -61,6 +79,8 @@ class TVBottleneck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.relu(self.bn2(self.conv2(h)))
+        if hasattr(self, "blk"):
+            h = F.relu(self.bn4(blk_nchw(self.blk, h)))
         h = self.bn3(self.conv3(h))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(h + identity)
@@ -90,25 +110,31 @@ class TorchResNet(nn.Module):
     """ResNet trunk; ``output``: "spatial" -> ``[N, H/32, W/32, C]``,
     "pooled" -> ``[N, C]``.
 
-    ``temporal_blocks`` other than "none" (the reference's experimental
-    temporal ResNets, dead code in the JAX package) is not ported.
+    ``temporal_blocks``: "none"; "bottleneck", a ``Blk`` in every
+    bottleneck (the reference's ``resnet50_1``; a basic-block arch takes
+    none, as in the JAX package); "stage", ``blk_1`` and ``blk_2`` after
+    stages 2 and 3 (``resnet50_2``). Frames then come in whole clips of
+    ``seq_len``.
     """
 
     def __init__(self, arch: str = "resnet50", output: str = "spatial",
-                 width: int = 64, temporal_blocks: str = "none"):
+                 width: int = 64, temporal_blocks: str = "none",
+                 seq_len: int = 8):
         super().__init__()
-        if temporal_blocks != "none":
-            raise NotImplementedError(
-                f"temporal_blocks={temporal_blocks!r} (the experimental "
-                "temporal ResNets) is not ported (ROADMAP.md, open item "
-                "'opt-in extras')")
+        if temporal_blocks not in ("none", "bottleneck", "stage"):
+            raise ValueError(f"temporal_blocks must be 'none', 'bottleneck' "
+                             f"or 'stage', got {temporal_blocks!r}")
         if arch not in RESNET_LAYERS:
             raise ValueError(f"unknown ResNet arch {arch!r}")
         if output not in ("spatial", "pooled"):
             raise ValueError(f"output must be 'spatial' or 'pooled', got "
                              f"{output!r}")
         self.arch, self.output, self.width = arch, output, width
-        block = TVBasicBlock if arch in BASIC_BLOCK_ARCHS else TVBottleneck
+        self.temporal_blocks = temporal_blocks
+        basic = arch in BASIC_BLOCK_ARCHS
+        block = TVBasicBlock if basic else TVBottleneck
+        extra = ({} if basic else dict(
+            temporal=temporal_blocks == "bottleneck", seq_len=seq_len))
         self.conv1 = _conv(3, width, 7, stride=2)
         self.bn1 = FP32BatchNorm2d(width)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -118,9 +144,11 @@ class TorchResNet(nn.Module):
             mods = []
             for b in range(blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
-                mods.append(block(inplanes, planes, stride))
+                mods.append(block(inplanes, planes, stride, **extra))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*mods))
+            if temporal_blocks == "stage" and stage in (1, 2):
+                self.add_module(f"blk_{stage}", Blk(inplanes, seq_len))
 
     @property
     def feature_dim(self) -> int:
@@ -133,6 +161,8 @@ class TorchResNet(nn.Module):
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
         for stage in range(1, 5):
             x = getattr(self, f"layer{stage}")(x)
+            if self.temporal_blocks == "stage" and stage in (2, 3):
+                x = blk_nchw(getattr(self, f"blk_{stage - 1}"), x)
         if self.output == "pooled":
             return x.mean(dim=(2, 3))
         return x.permute(0, 2, 3, 1)

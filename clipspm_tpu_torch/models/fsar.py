@@ -104,13 +104,19 @@ def clip_arch(cfg) -> CLIPArch:
         bf16_norms=bool(m.get("BF16_NORMS", False)), int8_eval=int8)
 
 
-def build_model(cfg) -> nn.Module:
+def build_model(cfg, **head_flags) -> nn.Module:
     """Construct the model named by ``cfg.MODEL.NAME`` (``PORTED_MODELS``),
     wired as the JAX package's ``build_model`` wires it; what
     ``check_model_config`` refuses raises.
     ``MODEL.OTAM_BACKEND`` is not read (on a GPU the OTAM DP is always
-    kernel K1, the soft-DTW DP kernel K2)."""
+    kernel K1, the soft-DTW DP kernel K2). ``head_flags``: constructor
+    flags that no config key sets, as in the JAX package (cpm2c's
+    ``use_visual_prompts`` and ``use_video_adapter``); another head
+    refuses them."""
     check_model_config(cfg)
+    if head_flags and cfg.MODEL.NAME != "cpm2c":
+        raise ValueError(f"{cfg.MODEL.NAME} takes no head flags, got "
+                         f"{sorted(head_flags)}")
     name, backbone = cfg.MODEL.NAME, cfg.MODEL.BACKBONE
     chunk, train_chunk, remat_policy = _chunking(cfg.MODEL, backbone, name)
     compute_dtype = (torch.bfloat16 if cfg.get("USE_AMP", False) else None)
@@ -144,7 +150,8 @@ def build_model(cfg) -> nn.Module:
             use_classification=bool(m.get("USE_CLASSIFICATION", True)),
             use_contrastive=bool(m.get("USE_CONTRASTIVE", False)),
             single_direct=bool(m.get("SINGLE_DIRECT", False)),
-            merge_before=bool(m.get("MERGE_BEFORE", False)), **tower)
+            merge_before=bool(m.get("MERGE_BEFORE", False)), **head_flags,
+            **tower)
     return CLIPSPMModel(
         arch=arch, way=way, shot=shot, spm=dict(cfg.params),
         single_direct=bool(m.get("SINGLE_DIRECT", False)),

@@ -9,23 +9,30 @@ kernel K1's fused mode per episode: the appearance stream at L=T, the motion
 stream at L=T-1) and video-to-text classification logits against the
 active split's table. The convolutions run over time as ``nn.Conv1d`` on
 ``[N, D, T]`` (flax convolves ``[N, T, D]``; the layout turns at their
-boundary). The JAX module's visual prompt generators and video adapter are
-reached by no config and are not carried (ROADMAP.md, opt-in extras).
-``CPM2C_DEFAULT_PARAMS`` fills the hyperparameters the reference expects in
-``cfg.params``.
+boundary). ``CPM2C_DEFAULT_PARAMS`` fills the hyperparameters the reference
+expects in ``cfg.params``.
+
+Two constructor flags, off by default and set by no config (as in the JAX
+package): ``use_visual_prompts`` adds prompts to the pixels before the
+tower (``get_prompts``: a patch MLP and a two-layer convolution, the
+support and the query each at its own ratio; the features then depend on a
+video's role, so the model is not feature-cacheable), and
+``use_video_adapter`` runs the frames through a 6-layer CLIP transformer
+with learned frame positions before the classification pooling.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...utils.precision import fp32_or_wider
-from ..backbones.clip import CLIPArch
-from ..blocks import TransformerV1, class_prototypes, cos_sim, otam_fp32
+from ..backbones.clip import CLIPArch, TransformerStack
+from ..blocks import (TransformerV1, class_prototypes, conv2d_nhwc, cos_sim,
+                      otam_fp32)
 from ..visual import CLIPVideoModel, compute_autocast, fp32_context
 
 # neutral defaults of the hyperparameters the reference reads from
@@ -49,14 +56,25 @@ class CPM2CModel(CLIPVideoModel):
     """CLIP visual tower + CPM2C head (shapes: ``CLIPVideoModel``). Returns
     dict(logits_local, logits_global, logits (= logits_local), each ``[1, Q,
     way]``; target_consist_distance, a scalar; class_logits ``[1, S+Q, C]``
-    with ``use_classification``)."""
+    with ``use_classification``).
+
+    ``use_visual_prompts`` creates ``meta_fc1`` / ``meta_fc2`` (the patch
+    MLP, ``3 n^2 -> hid_dim -> 3 n^2`` with ``n = prompt_patch``) and
+    ``meta_conv1`` / ``meta_conv2`` (``3 -> hid_dim_2 -> 3``, kernels
+    ``prompt_patch_2`` and ``prompt_patch_22``, "same" padding).
+    ``use_video_adapter`` (with ``use_classification``, where flax creates
+    it) creates ``frame_position_embeddings`` (77 positions) and
+    ``temporal_transformer`` (6 blocks, 8 heads, not causal; the tower's
+    switches do not reach it, as in the JAX package)."""
 
     def __init__(self, arch: CLIPArch, way: int, shot: int,
                  params: Mapping[str, float], motion_coeff: float = 0.5,
                  normal_coeff: float = 0.5, transformer_depth: int = 1,
                  use_classification: bool = True,
                  use_contrastive: bool = False, single_direct: bool = False,
-                 merge_before: bool = False, encode_chunk: int = 0,
+                 merge_before: bool = False,
+                 use_visual_prompts: bool = False,
+                 use_video_adapter: bool = False, encode_chunk: int = 0,
                  train_encode_chunk: int = 0,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__(arch, encode_chunk, train_encode_chunk, "full",
@@ -85,6 +103,20 @@ class CPM2CModel(CLIPVideoModel):
         self.motion_conv1_3 = nn.Conv1d(d, d, 3, padding=1)
         self.motion_conv1_5 = nn.Conv1d(d, d, 3, padding=2, dilation=2)
         self.scale_conv = nn.Conv1d(3 * d, d, 1)
+        self.use_visual_prompts = use_visual_prompts
+        if use_visual_prompts:
+            n, n2, n22 = (int(p[k]) for k in ("prompt_patch",
+                                              "prompt_patch_2",
+                                              "prompt_patch_22"))
+            hid, hid2 = int(p["hid_dim"]), int(p["hid_dim_2"])
+            self.meta_fc1 = nn.Linear(3 * n * n, hid)
+            self.meta_fc2 = nn.Linear(hid, 3 * n * n)
+            self.meta_conv1 = nn.Conv2d(3, hid2, n2, padding=(n2 - 1) // 2)
+            self.meta_conv2 = nn.Conv2d(hid2, 3, n22, padding=(n22 - 1) // 2)
+        self.use_video_adapter = use_video_adapter and use_classification
+        if self.use_video_adapter:
+            self.frame_position_embeddings = nn.Embedding(77, d)
+            self.temporal_transformer = TransformerStack(d, 6, 8)
 
     # -- submodules ----------------------------------------------------------
 
@@ -144,7 +176,80 @@ class CPM2CModel(CLIPVideoModel):
             per_class = per_class * self.scale
         return per_class
 
+    def get_prompts(self, x: torch.Tensor) -> torch.Tensor:
+        """The visual prompts of NHWC frames ``x [N, H, W, 3]``: the patch
+        MLP over non-overlapping ``n x n`` patches (cut in the JAX order
+        ``(hp, n, wp, n, C) -> (hp, wp, n, n, C)``) plus
+        ``prompts_2_weight`` times the convolution branch."""
+        N, H, W, C = x.shape
+        n = int(self.p["prompt_patch"])
+        hp, wp = H // n, W // n
+        patches = x.reshape(N, hp, n, wp, n, C).permute(0, 1, 3, 2, 4, 5)
+        local = self.meta_fc2(F.relu(self.meta_fc1(
+            patches.reshape(N * hp * wp, n * n * C))))
+        local = local.reshape(N, hp, wp, n, n, C).permute(0, 1, 3, 2, 4, 5)
+        glob = conv2d_nhwc(self.meta_conv2,
+                           F.relu(conv2d_nhwc(self.meta_conv1, x)))
+        return local.reshape(N, H, W, C) + self.p["prompts_2_weight"] * glob
+
+    def _prompted(self, images: torch.Tensor, ratio: float) -> torch.Tensor:
+        """``[N, T, H, W, 3]`` pixels plus ``ratio`` times their prompts:
+        the prompt layers in the compute dtype, the sum in the pixels'
+        (promoted) dtype; the tower's autocast then casts it, as the JAX
+        model casts the sum."""
+        flat = images.reshape((-1,) + tuple(images.shape[2:]))
+        with compute_autocast(images.device, self.compute_dtype):
+            flat = flat + self.get_prompts(flat) * ratio
+        return flat.reshape(images.shape)
+
     # -- forward -------------------------------------------------------------
+
+    def encode_episode(self, support_images, target_images
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The features ``[S, T, D]`` and ``[Q, T, D]`` of an episode's
+        clips in one tower call, each role's pixels with its prompts where
+        they are on."""
+        S = support_images.shape[0]
+        if self.use_visual_prompts:
+            support_images = self._prompted(support_images,
+                                            self.p["support_prompt_ratio"])
+            target_images = self._prompted(target_images,
+                                           self.p["target_prompt_ratio"])
+        feats = CLIPVideoModel.encode(
+            self, torch.cat([support_images, target_images], dim=0))
+        return feats[:S], feats[S:]
+
+    def forward(self, support_images, target_images, support_labels,
+                real_support_labels, real_target_labels, text_train,
+                text_test) -> Dict[str, torch.Tensor]:
+        su, qu = self.encode_episode(support_images, target_images)
+        return self.match_features(su, qu, support_labels,
+                                   real_support_labels, real_target_labels,
+                                   text_train, text_test)
+
+    def feature_cacheable(self) -> bool:
+        """With visual prompts a video's features depend on its role (the
+        support's and the query's ratios differ): not cacheable."""
+        return not self.use_visual_prompts
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """``[N, T, H, W, 3]`` -> ``[N, T, D]`` (the feature cache's
+        encode); refused with visual prompts, as the JAX model refuses."""
+        if self.use_visual_prompts:
+            raise ValueError(
+                "cpm2c with MODEL.USE_VISUAL_PROMPTS applies role-dependent "
+                "pixel prompts before the backbone — per-video features are "
+                "not cacheable (see feature_cacheable)")
+        return super().encode(images)
+
+    def _pooled(self, feats: torch.Tensor) -> torch.Tensor:
+        """``[N, T, D]`` -> ``[N, D]`` for the classification logits: the
+        time mean, after the residual adapter where it is on."""
+        if not self.use_video_adapter:
+            return feats.mean(dim=1)
+        pos = self.frame_position_embeddings.weight[:feats.shape[1]]
+        h = feats + pos[None].to(feats.dtype)
+        return (self.temporal_transformer(h) + feats).mean(dim=1)
 
     def match_features(self, su, qu, support_labels, real_support_labels,
                        real_target_labels, text_train, text_test
@@ -157,8 +262,8 @@ class CPM2CModel(CLIPVideoModel):
             su_mo = self._multiscale_motion(su)
             qu_mo = self._multiscale_motion(qu)
             if self.use_classification:
+                pooled = self._pooled(torch.cat([su, qu], dim=0))
                 with fp32_context(su.device):
-                    pooled = torch.cat([su, qu], dim=0).mean(dim=1)
                     out["class_logits"] = (cos_sim(
                         fp32_or_wider(pooled), fp32_or_wider(table))
                         * self.scale)[None]

@@ -34,7 +34,7 @@ from torch import nn
 
 from ...ops.softdtw import softdtw
 from ...utils.precision import fp32_or_wider
-from ..backbones.clip import FP32BatchNorm
+from ..backbones.clip import FP32BatchNorm3d
 from ..backbones.resnet import TorchResNet
 from ..blocks import group_by_class
 from ..visual import compute_autocast, encode_frames
@@ -43,11 +43,6 @@ from ..visual import compute_autocast, encode_frames
 _PERTURB = np.asarray([[0, 0], [0, 1], [1, 0], [0, -1], [-1, 0],
                        [1, 1], [-1, -1], [1, -1], [-1, 1]],
                       dtype=np.float32) * 0.2
-
-
-class FP32BatchNorm3d(FP32BatchNorm, nn.BatchNorm3d):
-    """BatchNorm over ``[N, C, T, H, W]`` in fp32, with flax's biased
-    running variance over ``N*T*H*W`` (``backbones/clip.py``)."""
 
 
 def _no_autocast(t: torch.Tensor):

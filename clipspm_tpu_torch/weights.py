@@ -18,7 +18,14 @@
   ``positional_embedding`` and ``proj`` carry across unchanged. The
   torchvision ResNet trunk takes
   torchvision's keys (the inverse of ``clipspm_tpu/models/backbones/
-  resnet.py:convert_torchvision_resnet``).
+  resnet.py:convert_torchvision_resnet``); its temporal blocks (``blk``,
+  ``bn4``, ``blk_1``, ``blk_2``) keep their JAX names. A CLIP transformer
+  outside a tower (cpm2c's video adapter) takes the tower's block keys, an
+  ``Embed`` table becomes an embedding's ``weight``. flax creates a
+  module's parameters where it is first called, so a tree may lack a
+  switch's leaves (cpm2c's prompts, its adapter): the port's model holds
+  exactly the tree's, and a strict ``load_state_dict`` refuses a tree that
+  does not match its flags.
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ from torch import nn
 
 from .models.backbones.clip import (AttentionPool2d, CLIPModel,
                                     FP32LayerNorm, ModifiedResNet,
-                                    VisionTransformer, _Attention)
+                                    TransformerStack, VisionTransformer,
+                                    _Attention)
 from .models.backbones.resnet import TorchResNet
+from .models.blocks_extra import GroupGLKA, Mo1, _MotionToken
 from .models.heads.ta2n import ACM, TTM
 
 StateDict = Dict[str, torch.Tensor]
@@ -57,8 +66,9 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     1)``), scalar gains at 1 (molo's ``scale_motion`` too), cpm2c's and
     molo's class tokens at ``N(0, 1)``; TA2N's ``loc_fc2`` at a zero kernel
     and bias ``[2, 0]`` and ``mv_fc2`` at zero, otam's token bank ``mo``
-    xavier-normal, strm's ``gamma`` at 0 and soap's ``lmd`` at 0.5, as the
-    JAX package initialises them.
+    xavier-normal, strm's ``gamma`` at 0 and soap's ``lmd`` at 0.5, the
+    dormant blocks' motion tokens at U[0, 1) and ``GroupGLKA``'s ``scale``
+    at 0, as the JAX package initialises them.
     """
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
@@ -94,6 +104,10 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(mod, ACM):
             mod.mv_fc2.weight.zero_()
             mod.mv_fc2.bias.zero_()
+        elif isinstance(mod, GroupGLKA):
+            mod.scale.zero_()
+    uniform = {id(m.mo) for m in model.modules()
+               if isinstance(m, (Mo1, _MotionToken))}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if p.dim() == 0 and leaf in ("mo_alpha1", "scale", "scale_motion"):
@@ -104,6 +118,8 @@ def random_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             p.zero_()
         elif leaf in ("class_token", "class_token_motion"):
             _normal_(p, 1.0, gen)
+        elif id(p) in uniform:
+            p.copy_(torch.rand(p.shape, generator=gen))
         elif leaf == "mo" and p.dim() == 3:
             # xavier-normal over (fan_in, fan_out) = the last two axes
             _normal_(p, (2.0 / (p.shape[-2] + p.shape[-1])) ** 0.5, gen)
@@ -206,6 +222,9 @@ def torchvision_resnet_state_dict(params: Mapping[str, Any],
     out: StateDict = {}
     _conv2d(params["conv1"], out, f"{prefix}conv1")
     _bn(params["bn1"], stats["bn1"], out, f"{prefix}bn1")
+    for blk in (k for k in params if k.startswith("blk_")):
+        out.update(head_state_dict(params[blk], f"{prefix}{blk}.",
+                                   stats[blk]))
     for blk in (k for k in params if k.startswith("layer")):
         stage, b = blk[5:].split("_")
         key = f"{prefix}layer{stage}.{b}"
@@ -215,6 +234,9 @@ def torchvision_resnet_state_dict(params: Mapping[str, Any],
                 _conv2d(bp[name], out, f"{key}.{name}")
             elif name.startswith("bn"):
                 _bn(bp[name], bs[name], out, f"{key}.{name}")
+            elif name == "blk":
+                out.update(head_state_dict(bp[name], f"{key}.blk.",
+                                           bs[name]))
         if "down_conv" in bp:
             _conv2d(bp["down_conv"], out, f"{key}.downsample.0")
             _bn(bp["down_bn"], bs["down_bn"], out, f"{key}.downsample.1")
@@ -255,7 +277,9 @@ def head_state_dict(params: Mapping[str, Any], prefix: str = "",
     joined by dots); Dense, Conv1D, Conv2d and Conv3d kernels are
     transposed; a
     norm with ``batch_stats`` (from ``stats``, the same tree shape) is a
-    BatchNorm, one without is a LayerNorm (``scale`` becomes ``weight``)."""
+    BatchNorm, one without is a LayerNorm (``scale`` becomes ``weight``);
+    an ``Embed``'s ``embedding`` is the ``weight``; a CLIP
+    ``TransformerStack`` (``resblock_i``) takes the tower's block keys."""
     out: StateDict = {}
 
     def walk(node: Mapping[str, Any], st: Mapping[str, Any],
@@ -276,6 +300,12 @@ def head_state_dict(params: Mapping[str, Any], prefix: str = "",
                     _bn(v, st[name], out, key)
                 else:
                     _norm(v, out, key)
+            elif "embedding" in v:
+                out[f"{key}.weight"] = _t(v["embedding"])
+            elif "resblock_0" in v:
+                for i in range(len(v)):
+                    _resblock(v[f"resblock_{i}"], out,
+                              f"{key}.resblocks.{i}")
             else:
                 walk(v, st.get(name, {}), f"{key}.")
 
@@ -365,7 +395,8 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     own, one to one."""
     roots = tuple(name for name, mod in model.named_modules()
                   if isinstance(mod, (CLIPModel, VisionTransformer,
-                                      ModifiedResNet, TorchResNet)))
+                                      ModifiedResNet, TorchResNet,
+                                      TransformerStack)))
     out: Dict[str, Tuple[str, ...]] = {}
     for name, _ in model.named_parameters():
         parts = name.split(".")

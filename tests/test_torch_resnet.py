@@ -82,8 +82,3 @@ def test_state_dict_keys_are_torchvisions():
     assert "layer2.0.downsample.0.weight" in basic
     assert "layer1.0.downsample.0.weight" not in basic
     assert "layer1.0.conv3.weight" not in basic
-
-
-def test_temporal_blocks_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchResNet(temporal_blocks="bottleneck")
