@@ -130,7 +130,12 @@ class SOAPModel(nn.Module):
                                self.tripel_prior(target_images)])
         feats = encode_frames(self.backbone, clips, self.encode_chunk,
                               self.compute_dtype)          # [S+Q, T, D]
-        su, qu = feats[:S], feats[S:]
+        return self.head(feats[:S], feats[S:], support_labels)
+
+    def head(self, su: torch.Tensor, qu: torch.Tensor,
+             support_labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The head over the trunk's pooled features of the support's and
+        the queries' prior clips, ``[S, T, D]`` and ``[Q, T, D]``."""
         with fp32_context(su.device):
             t_loss = soap_t_loss(su.mean(dim=1), self.lmd)
         with compute_autocast(su.device, self.compute_dtype):

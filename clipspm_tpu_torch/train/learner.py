@@ -227,15 +227,20 @@ class Learner:
             batch.map(lambda x: x.record_stream(stream))
         return batch
 
-    def _episode_loss(self, ep: Episode, train: bool = True):
+    def episode_outputs(self, ep: Episode, train: bool = True) -> dict:
+        """The model's outputs over one device episode, its frames through
+        the episode transform (random crops and flips in training)."""
         t = self.transform
         frames = [episode_device_transform(
             images, train=train, img_size=t.img_size, resize_to=t.resize_to,
             flip=t.flip, normalize=t.normalize, gen=self.gen)
             for images in (ep.support_images, ep.target_images)]
-        out = self.model(frames[0], frames[1], ep.support_labels,
-                         ep.real_support_labels, ep.real_target_labels,
-                         self.text_train, self.text_test)
+        return self.model(frames[0], frames[1], ep.support_labels,
+                          ep.real_support_labels, ep.real_target_labels,
+                          self.text_train, self.text_test)
+
+    def _episode_loss(self, ep: Episode, train: bool = True):
+        out = self.episode_outputs(ep, train)
         return loss_and_acc(self.model_name, out, ep.target_labels,
                             ep.real_support_labels, ep.real_target_labels,
                             self.tasks_per_batch, cfg=self.cfg, train=train)

@@ -6,6 +6,8 @@ Port of ``clipspm_tpu/utils/metrics.py``:
   JSON object per line, with the JAX trainer's scalar set, and mirrors each
   scalar into TensorBoard event files when the ``tensorboard`` package
   imports (it is optional: without it the JSONL is the record);
+- :func:`jsonl_to_tensorboard`, which writes such a JSONL's scalars into
+  TensorBoard event files after the run;
 - :func:`host_rss_gb`, logged with every train line;
 - :class:`TestAccuracies`, the results formatter;
 - :func:`profile_trace`, a ``torch.profiler`` trace of a block written as a
@@ -83,6 +85,30 @@ class MetricsWriter:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def jsonl_to_tensorboard(jsonl_path: str, tb_dir: str) -> int:
+    """Write the scalars of a ``metrics.jsonl`` made by
+    :class:`MetricsWriter` into TensorBoard event files under ``tb_dir``;
+    returns how many. Raises without the ``tensorboard`` package."""
+    writer = _open_event_writer(tb_dir)
+    if writer is None:
+        raise RuntimeError("tensorboard package not available")
+    n = 0
+    try:
+        with open(jsonl_path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                rec = json.loads(line)
+                writer.add_event(_scalar_event(
+                    rec["tag"], rec["value"], rec["step"],
+                    rec.get("ts", time.time())))
+                n += 1
+    finally:
+        writer.close()
+    return n
 
 
 class TestAccuracies:

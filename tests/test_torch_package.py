@@ -63,6 +63,13 @@ def test_no_jax_or_reference_package_imports(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+def test_the_scan_covers_the_tools():
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {os.path.join("tools", f"{name}.py") for name in (
+        "jsonl_to_tb", "train_convergence", "repro_accuracy",
+        "int8_ab")} <= scanned
+
+
 def test_every_module_imports_without_building_kernels():
     built = os.path.join(PKG, "build")
     before = set(os.listdir(built)) if os.path.isdir(built) else set()
