@@ -787,9 +787,8 @@ MODEL_TOL = 1e-4
 # the device kernels of each, as the profiler names them (both modes)
 KERNEL_NAMES = {"K1": ("otam_dp_kernel", "otam_fused_kernel"),
                 "K2": ("softdtw_dp_kernel", "softdtw_fused_kernel")}
-# the profiler range around each kernel's backward replay (train profile)
-REPLAYS = {"K1": "K1 backward: plain replay",
-           "K2": "K2 backward: plain replay"}
+# the port's span around each kernel's backward replay (train profile)
+REPLAYS = {"K1": "otam.backward", "K2": "softdtw.backward"}
 
 
 def _counters() -> dict:
@@ -809,23 +808,25 @@ def _read_counters(counters: dict) -> dict:
     return {k: mod.launches for k, mod in counters.items()}
 
 
-def _device_events(prof) -> list:
+def _device_events(prof, spans=()) -> list:
     """The device's kernels and copies: the profiler's GPU copies of user
-    ranges (``gpu_user_annotation``, spans that cover idle time) left out."""
+    ranges (``gpu_user_annotation``, spans that cover idle time; the port's
+    ``spans`` by name) left out."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and e.name not in REPLAYS.values()
+            and e.name not in spans
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _summarize(prof, wall_us: float, n: int, top: int = 6) -> tuple:
+def _summarize(prof, wall_us: float, n: int, top: int = 6,
+               spans=()) -> tuple:
     """The device side of a profile over ``n`` episodes: wall and device
     busy ms an episode (busy is the sum of the device events' durations; one
     stream, so they do not overlap), idle share, device ops an episode, each
     kernel's ms and share, and the top device ops. Returns the summary and
     the busy microseconds."""
-    dev = _device_events(prof)
+    dev = _device_events(prof, spans)
     busy_us = sum(e.device_time_total for e in dev)
     by_name = {}
     for e in dev:
@@ -2007,43 +2008,29 @@ def profile_train_step(learner, cfg) -> dict:
     """``torch.profiler`` over one accumulated optimizer step of the trained
     model (PROFILE_EPISODES fresh episodes of the train stream, bf16, as
     trained): the shared summary (per episode), and each kernel's backward,
-    the plain version's replay (a profiler range around each backward
-    call). For a remat-chunked tower, also one unprofiled step of the same
-    episodes under each remat policy (``REMAT_POLICIES``): its seconds an
-    episode and its peak device memory."""
+    the plain version's replay (the port's span around each backward call,
+    recorded for the profiled step). For a remat-chunked tower, also one
+    unprofiled step of the same episodes under each remat policy
+    (``REMAT_POLICIES``): its seconds an episode and its peak device
+    memory."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from clipspm_tpu_torch.ops import otam_cuda, softdtw_cuda
+    from clipspm_tpu_torch.utils.metrics import recording
 
     tpb = PROFILE_EPISODES
     eps = _seeded_episodes(cfg, True, tpb)
     batch = learner._ready(*learner._to_device(eps))
-    functions = {"K1": otam_cuda._OtamDistance,
-                 "K2": softdtw_cuda._SoftDTWCosPadded}
-    backwards = {k: f.backward for k, f in functions.items()}
-
-    def ranged(name, backward):
-        def run(ctx, grad_out):
-            with record_function(name):
-                return backward(ctx, grad_out)
-        return staticmethod(run)
-
-    for k, f in functions.items():
-        f.backward = ranged(REPLAYS[k], backwards[k])
-    try:
-        learner._step(batch, tpb)          # warm-up
+    learner._step(batch, tpb)          # warm-up
+    torch.cuda.synchronize()
+    with recording() as spans, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner._step(batch, tpb)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            learner._step(batch, tpb)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        for k, f in functions.items():
-            f.backward = staticmethod(backwards[k])
-    out, busy_us = _summarize(prof, wall_us, tpb, top=8)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out, busy_us = _summarize(prof, wall_us, tpb, top=8,
+                              spans={r.name for r in spans})
     model = learner.model
     if getattr(model, "train_encode_chunk", 0):
         policy, seconds, peaks = model.train_remat_policy, {}, {}

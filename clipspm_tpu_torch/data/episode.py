@@ -42,6 +42,11 @@ class Episode:
         """Episode ``e`` of a batch."""
         return self.map(lambda x: x[e])
 
+    def nbytes(self) -> int:
+        """The bytes of its leaves (numpy arrays or tensors)."""
+        return sum(int(getattr(self, f.name).nbytes)
+                   for f in dataclasses.fields(self))
+
 
 def stack_episodes(episodes: Sequence[Episode]) -> Episode:
     """Stack host episodes into an ``[E, ...]`` batch: one ``np.stack`` per

@@ -15,6 +15,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops import tags
+from ..utils.metrics import span
 from .backbones.clip import make_clip_visual  # noqa: F401 (re-export)
 from .backbones.resnet import TorchResNet
 
@@ -99,6 +100,13 @@ def fp32_context(device: torch.device):
     return torch.autocast(device.type, enabled=False)
 
 
+def _tower(backbone: nn.Module, frames: torch.Tensor) -> torch.Tensor:
+    """One call of the tower, a ``model.tower`` span (in a remat chunk's
+    recompute too, on the thread that runs the backward)."""
+    with span("model.tower", frames=lambda: frames.shape[0]):
+        return backbone(frames)
+
+
 def encode_chunked(backbone: nn.Module, frames: torch.Tensor, chunk: int,
                    train_chunk: int = 0,
                    remat_policy: str = "attn_out") -> torch.Tensor:
@@ -120,7 +128,7 @@ def encode_chunked(backbone: nn.Module, frames: torch.Tensor, chunk: int,
     if backbone.training:
         chunk = chunk if train_chunk == 1 else int(train_chunk)
         if not chunk or chunk >= N:
-            return backbone(frames)
+            return _tower(backbone, frames)
         pad = (-N) % chunk
         if pad:
             frames = torch.cat([frames, frames[:pad]], dim=0)
@@ -128,12 +136,13 @@ def encode_chunked(backbone: nn.Module, frames: torch.Tensor, chunk: int,
         kw = {} if context is None else {"context_fn": context}
         with _no_cast_cache(frames.device):
             feats = torch.cat([
-                checkpoint(backbone, frames[i:i + chunk], use_reentrant=False,
-                           **kw) for i in range(0, frames.shape[0], chunk)])
+                checkpoint(_tower, backbone, frames[i:i + chunk],
+                           use_reentrant=False, **kw)
+                for i in range(0, frames.shape[0], chunk)])
         return feats[:N]
     if not chunk or chunk >= N:
-        return backbone(frames)
-    return torch.cat([backbone(frames[i:i + chunk])
+        return _tower(backbone, frames)
+    return torch.cat([_tower(backbone, frames[i:i + chunk])
                       for i in range(0, N, chunk)], dim=0)
 
 
@@ -174,7 +183,8 @@ class ResNetVideoModel(nn.Module):
                 text_train=None, text_test=None) -> Dict[str, torch.Tensor]:
         S = support_images.shape[0]
         feats = self.encode(torch.cat([support_images, target_images]))
-        return self.match_features(feats[:S], feats[S:], support_labels)
+        with span("model.head"):
+            return self.match_features(feats[:S], feats[S:], support_labels)
 
     def feature_cacheable(self) -> bool:
         """Per-video features fully determine the head's inputs
@@ -227,9 +237,11 @@ class CLIPVideoModel(nn.Module):
                 text_test) -> Dict[str, torch.Tensor]:
         S, Q = support_images.shape[0], target_images.shape[0]
         feats = self.encode(torch.cat([support_images, target_images], dim=0))
-        return self.match_features(feats[:S], feats[S:S + Q], support_labels,
-                                   real_support_labels, real_target_labels,
-                                   text_train, text_test)
+        with span("model.head"):
+            return self.match_features(feats[:S], feats[S:S + Q],
+                                       support_labels, real_support_labels,
+                                       real_target_labels, text_train,
+                                       text_test)
 
     def feature_cacheable(self) -> bool:
         """Per-video features fully determine the head's inputs

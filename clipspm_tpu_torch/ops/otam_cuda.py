@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from ..utils.metrics import span
 from . import build
 from .otam import otam_cum_dist as plain_cum_dist
 from .otam import otam_distance_plain
@@ -153,7 +154,8 @@ class _OtamDP(torch.autograd.Function):
     @_bwd
     def backward(ctx, grad_out):
         (tables,) = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("otam.backward", tables=lambda: tuple(tables.shape)), \
+                torch.enable_grad():
             t = tables.detach().requires_grad_(True)
             (grad,) = torch.autograd.grad(plain_cum_dist(t, ctx.lbda), t,
                                           grad_out)
@@ -173,7 +175,8 @@ class _OtamDistance(torch.autograd.Function):
     @_bwd
     def backward(ctx, grad_out):
         support, query = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("otam.backward", support=lambda: tuple(support.shape),
+                  query=lambda: tuple(query.shape)), torch.enable_grad():
             s = support.detach().requires_grad_(True)
             q = query.detach().requires_grad_(True)
             gs, gq = torch.autograd.grad(

@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from ..utils.metrics import span
 from . import build
 from .softdtw import softdtw_cos_padded_plain
 from .softdtw import softdtw_from_dists as plain_from_dists
@@ -150,7 +151,8 @@ class _SoftDTW(torch.autograd.Function):
     @_bwd
     def backward(ctx, grad_out):
         (tables,) = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("softdtw.backward", tables=lambda: tuple(tables.shape)), \
+                torch.enable_grad():
             t = tables.detach().requires_grad_(True)
             (grad,) = torch.autograd.grad(
                 plain_from_dists(t, ctx.gamma, ctx.bandwidth), t, grad_out)
@@ -169,7 +171,8 @@ class _SoftDTWCosPadded(torch.autograd.Function):
     @_bwd
     def backward(ctx, grad_out):
         x, y = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("softdtw.backward", x=lambda: tuple(x.shape),
+                  y=lambda: tuple(y.shape)), torch.enable_grad():
             tx = x.detach().requires_grad_(True)
             ty = y.detach().requires_grad_(True)
             gx, gy = torch.autograd.grad(

@@ -65,6 +65,7 @@ from ..parallel.mesh import EpisodeMesh, episode_mean_, flat_buffers
 from ..parallel.tensor import (full_optimizer_state, full_shape,
                                full_state_dict, load_full_state_dict,
                                shard_model_, shard_optimizer_state)
+from ..utils.metrics import recording, span, timed
 from .losses import loss_and_acc
 from .optim import make_optimizer
 
@@ -231,10 +232,12 @@ class Learner:
         """The model's outputs over one device episode, its frames through
         the episode transform (random crops and flips in training)."""
         t = self.transform
-        frames = [episode_device_transform(
-            images, train=train, img_size=t.img_size, resize_to=t.resize_to,
-            flip=t.flip, normalize=t.normalize, gen=self.gen)
-            for images in (ep.support_images, ep.target_images)]
+        with span("learner.transform"):
+            frames = [episode_device_transform(
+                images, train=train, img_size=t.img_size,
+                resize_to=t.resize_to, flip=t.flip, normalize=t.normalize,
+                gen=self.gen)
+                for images in (ep.support_images, ep.target_images)]
         return self.model(frames[0], frames[1], ep.support_labels,
                           ep.real_support_labels, ep.real_target_labels,
                           self.text_train, self.text_test)
@@ -287,10 +290,12 @@ class Learner:
                 for b, s0 in zip(stats, start):
                     b.copy_(s0)
                 self._seed_episode(self.episode + p)
-                loss, acc = self._episode_loss(batch[k])
+                with span("learner.forward"):
+                    loss, acc = self._episode_loss(batch[k])
                 # outside the model's autocast blocks: each op's backward
                 # runs in the dtype its forward ran in (K1's replay in fp32)
-                loss.backward()
+                with span("learner.backward"):
+                    loss.backward()
                 loss_sum += loss.detach()
                 acc_sum += acc
                 if stats:
@@ -330,8 +335,9 @@ class Learner:
             self.mesh.tp_broadcast_(
                 [p.grad for n, p in zip(self._param_names(), params)
                  if self.shards[n] is None] + batch_stats(self.model))
-        self.optimizer.step()
-        self.scheduler.step()
+        with span("learner.optimizer"):
+            self.optimizer.step()
+            self.scheduler.step()
         self.episode += n_valid
         denom = max(n_valid, 1)
         return {"loss": metrics[0] / denom, "acc": metrics[1] / denom}
@@ -345,17 +351,28 @@ class Learner:
         the others may be None). Returns loss and acc averaged over the
         real ones."""
         n = len(episodes) if n_valid is None else int(n_valid)
-        local = self._local(episodes[:n])
-        batch = self._ready(*self._to_device(local)) if local else None
-        return {k: float(v) for k, v in self._step(batch, n).items()}
+        with span("learner.step", call=True, episodes=n):
+            local = self._local(episodes[:n])
+            batch = None
+            if local:
+                with span("learner.stage") as sp:
+                    batch = self._ready(*self._to_device(local))
+                    sp.set(bytes=batch.nbytes)
+            metrics = self._step(batch, n)
+            with span("learner.fetch"):
+                return {k: float(v) for k, v in metrics.items()}
 
     @torch.no_grad()
     def _eval_batch(self, batch: Episode, n: int) -> torch.Tensor:
         """``[n, 2]`` (loss, accuracy) of the first ``n`` episodes of a
         device batch, one episode after another (unfetched)."""
-        return torch.stack([
-            torch.stack([x.float() for x in self._episode_loss(
-                batch[e], train=False)]) for e in range(n)])
+        rows = []
+        for e in range(n):
+            with span("learner.forward"):
+                rows.append(torch.stack([x.float() for x in
+                                         self._episode_loss(batch[e],
+                                                            train=False)]))
+        return torch.stack(rows)
 
     def evaluate(self, n_episodes: int, source=None,
                  batch_size: int = 1) -> Dict[str, float]:
@@ -372,21 +389,30 @@ class Learner:
         hold None) and every rank gathers all (loss, accuracy) pairs in
         stream order over the dp group. Returns mean accuracy (%), its
         ``196*std/sqrt(n)`` CI, mean loss, the per-episode ``loss_acc``
-        ``[n, 2]``, and the wall and host-stall seconds."""
+        ``[n, 2]``, and the wall and host-stall seconds (the loop's waits
+        on the staging thread, its ``eval.wait`` spans)."""
+        with span("learner.evaluate", call=True, episodes=n_episodes):
+            return self._evaluate(n_episodes, source, batch_size)
+
+    def _evaluate(self, n_episodes: int, source, batch_size: int
+                  ) -> Dict[str, float]:
         it = iter(source or self.test_source)
         batch_size = max(1, int(batch_size))
         world = self.mesh.dp_world if self.mesh is not None else 1
         batch_size += -batch_size % world
         self.model.eval()
 
-        def stage(n):
-            items = [next(it) for _ in range(n)]
-            local = [i for i, ep in enumerate(items) if ep is not None]
-            if world == 1 and len(local) < n:
-                raise ValueError("an episode of the test stream is None")
-            if not local:
-                return (None, None), []
-            return self._to_device([items[i] for i in local]), local
+        def stage(index, n):
+            with span("eval.stage", batch=index) as sp:
+                items = [next(it) for _ in range(n)]
+                local = [i for i, ep in enumerate(items) if ep is not None]
+                if world == 1 and len(local) < n:
+                    raise ValueError("an episode of the test stream is None")
+                if not local:
+                    return (None, None), []
+                staged = self._to_device([items[i] for i in local])
+                sp.set(bytes=staged[0].nbytes)
+                return staged, local
 
         rows: List[np.ndarray] = []        # (position, loss, acc) of mine
         stager = _cf.ThreadPoolExecutor(max_workers=1,
@@ -395,22 +421,26 @@ class Learner:
 
         def harvest(pending):
             m, positions = pending
+            with span("eval.harvest"):
+                m = m.cpu()
             rows.append(np.concatenate([
                 np.asarray(positions, np.float64)[:, None],
-                m.cpu().numpy().astype(np.float64)], axis=1))
+                m.numpy().astype(np.float64)], axis=1))
 
         stall_s, t0 = 0.0, time.perf_counter()
         try:
-            done = 0
+            done, staged = 0, 0
             if n_episodes > 0:
-                fut = stager.submit(stage, min(batch_size, n_episodes))
+                fut = stager.submit(stage, staged, min(batch_size,
+                                                       n_episodes))
             while done < n_episodes:
-                t_w = time.perf_counter()
-                (batch, ready), local = fut.result()
-                stall_s += time.perf_counter() - t_w
+                with timed("eval.wait") as wait:
+                    (batch, ready), local = fut.result()
+                stall_s += wait.seconds
                 n = min(batch_size, n_episodes - done)
                 if done + n < n_episodes:
-                    fut = stager.submit(stage, min(
+                    staged += 1
+                    fut = stager.submit(stage, staged, min(
                         batch_size, n_episodes - done - n))
                 if local:
                     m = self._eval_batch(self._ready(batch, ready),
@@ -509,7 +539,8 @@ class Learner:
         window_loss: List[float] = []
         window_acc: List[float] = []
         episode = self.episode
-        # a torch.profiler trace of one optimizer step, on request
+        # a torch.profiler trace of one optimizer step with its spans, on
+        # request
         profile_dir = os.environ.get("CLIPSPM_PROFILE_DIR")
         profiled = self.mesh is not None and not self.mesh.is_main
         self.model.train()
@@ -535,16 +566,16 @@ class Learner:
         try:
             fut = stager.submit(stage, min(tpb, total - episode))
             while episode < total:
-                t_w = time.perf_counter()
-                (batch, done), n = fut.result()
-                stall_s += time.perf_counter() - t_w
+                with timed("learner.wait") as wait:
+                    (batch, done), n = fut.result()
+                stall_s += wait.seconds
                 nxt = episode + n
                 if nxt < total:
                     fut = stager.submit(stage, min(tpb, total - nxt))
                 if batch is not None:
                     batch = self._ready(batch, done)
                 if profile_dir and not profiled and episode > 0:
-                    with profile_trace(profile_dir):
+                    with recording(), profile_trace(profile_dir):
                         dm = {k: float(v)
                               for k, v in self._step(batch, n).items()}
                     profiled = True

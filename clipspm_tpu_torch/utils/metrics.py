@@ -11,16 +11,20 @@ Port of ``clipspm_tpu/utils/metrics.py``:
 - :func:`host_rss_gb`, logged with every train line;
 - :class:`TestAccuracies`, the results formatter;
 - :func:`profile_trace`, a ``torch.profiler`` trace of a block written as a
-  Chrome trace under a directory.
+  Chrome trace under a directory;
+- the span recorder: :func:`span` and :func:`timed` around the program's
+  layers, kept only inside :func:`recording`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 
 def host_rss_gb() -> float:
@@ -145,3 +149,172 @@ def profile_trace(log_dir: Optional[str]):
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# The span recorder. A span's start is stamped with ``time.time_ns``
+# (Unix-epoch nanoseconds), the clock of the profiler's events (a
+# ``record_function`` range's ``start_ns()``), so spans lay over a device
+# trace; its duration is a ``perf_counter_ns`` pair, which no clock step
+# moves, and its end the start plus the duration. At most MAX_SPANS
+# records a recording; the rest are counted as dropped.
+MAX_SPANS = 1 << 20
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. ``parent`` is the span open on the same thread when
+    it began; ``call`` the ``Learner.train_episodes`` or
+    ``Learner.evaluate`` span it ran under, on any thread (None outside
+    one)."""
+    name: str
+    id: int
+    parent: Optional[int]
+    call: Optional[int]
+    thread: int
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+class Spans(list):
+    """The :class:`SpanRecord` s of one :func:`recording`, in the order the
+    spans closed, and ``dropped``: how many past ``MAX_SPANS``."""
+    dropped = 0
+
+
+class _Recorder:
+    """The process's recorder: the active recording (None: off), span ids,
+    the open call, each thread's stack of open span ids, and the lock under
+    which threads append to the recording and count what it dropped."""
+
+    def __init__(self):
+        self.records: Optional[Spans] = None
+        self.ids = itertools.count(1)
+        self.call: Optional[int] = None
+        self.local = threading.local()
+        self.lock = threading.Lock()
+
+    def stack(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+
+_RECORDER = _Recorder()
+
+
+class _NoSpan:
+    """What :func:`span` returns while nothing records: one shared object
+    that does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """An open span: a ``record_function`` range of its name and, on exit,
+    one record in the recording that was on when it began. With no
+    recording (a :func:`timed` span) it only reads the clock."""
+    __slots__ = ("name", "attrs", "seconds", "_records", "_starts_call",
+                 "_id", "_parent", "_call", "_prev_call", "_range", "_start",
+                 "_pc")
+
+    def __init__(self, name: str, attrs: dict, records: Optional[Spans],
+                 starts_call: bool = False):
+        self.name, self.attrs, self._records = name, attrs, records
+        self._starts_call = starts_call
+        self.seconds = 0.0
+
+    def set(self, **attrs) -> None:
+        """Attributes known only inside the span (bytes staged, ...)."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        if self._records is None:
+            self._pc = time.perf_counter_ns()
+            return self
+        from torch.profiler import record_function
+
+        rec = _RECORDER
+        stack = rec.stack()
+        self._id = next(rec.ids)
+        self._parent = stack[-1] if stack else None
+        stack.append(self._id)
+        if self._starts_call:
+            self._prev_call, rec.call = rec.call, self._id
+        self._call = rec.call
+        self._range = record_function(self.name)
+        # the stamps enclose the profiler range, whose exit can take
+        # 0.2 ms under a profiler: a range around the span ends with it
+        self._start = time.time_ns()
+        self._pc = time.perf_counter_ns()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        records = self._records
+        if records is None:
+            self.seconds = (time.perf_counter_ns() - self._pc) / 1e9
+            return False
+        self._range.__exit__(*exc)
+        duration = time.perf_counter_ns() - self._pc
+        self.seconds = duration / 1e9
+        rec = _RECORDER
+        rec.stack().pop()
+        if self._starts_call:
+            rec.call = self._prev_call
+        # a callable attr is a count taken only here, while recording
+        record = SpanRecord(
+            self.name, self._id, self._parent, self._call,
+            threading.get_ident(), self._start, self._start + duration,
+            {k: v() if callable(v) else v for k, v in self.attrs.items()})
+        with rec.lock:
+            if len(records) < MAX_SPANS:
+                records.append(record)
+            else:
+                records.dropped += 1
+        return False
+
+
+def span(name: str, call: bool = False, **attrs):
+    """A span of the program's work called ``name``, with ``attrs``
+    (counts: frames, bytes, shapes; a count that costs work to take is
+    passed as a callable, called only when the span is recorded).
+    ``call``: it is a whole ``train_episodes`` or ``evaluate`` call, whose
+    id every span inside it carries. Outside :func:`recording` it is
+    :data:`NO_SPAN`."""
+    records = _RECORDER.records
+    if records is None:
+        return NO_SPAN
+    return _Span(name, attrs, records, call)
+
+
+def timed(name: str, **attrs) -> _Span:
+    """A span that reads the clock whether or not a recording is on: its
+    ``seconds`` after exit (a ``perf_counter_ns`` pair) are the record's
+    duration when one is (the host-stall timers)."""
+    return _Span(name, attrs, _RECORDER.records)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every span begun inside the block; yields its
+    :class:`Spans`. Nothing is written anywhere: a ``torch.profiler``
+    trace of the block carries the spans' names as its user ranges."""
+    records = Spans()
+    rec = _RECORDER
+    previous, rec.records = rec.records, records
+    try:
+        yield records
+    finally:
+        rec.records = previous
