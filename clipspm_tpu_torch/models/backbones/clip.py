@@ -14,7 +14,9 @@ attention kernel, XLA fuses its einsums), spelled out as in the JAX package
 where a switch needs its probabilities (``fast_softmax``, the ``attn`` remat
 policy: ``ops/tags.py``); the text tower's causal attention is spelled out.
 The vision tower's switches (``CLIPArch``) are the JAX package's; the text
-tower takes none, as there.
+tower takes none, as there. Both vision towers are ``GraphedTower`` s
+(``models/tower_graph.py``): in evaluation on the card a call replays a
+CUDA graph of ``tower_forward``, the eager body.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch import nn
 from ...ops import tags
 from ...ops.quant import int8_linear
 from ...utils.precision import fp32_or_wider
+from ..tower_graph import GraphedTower
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,8 +246,11 @@ class AttentionPool2d(nn.Module):
                           self.tp)[:, 0]
 
 
-class ModifiedResNet(nn.Module):
+class ModifiedResNet(GraphedTower):
     """3-conv stem + avgpool + 4 stages + attention pooling."""
+
+    graph_switches = ("fp32", "affine", "track_running_stats", "ceil_mode",
+                      "count_include_pad", "transposed")
 
     def __init__(self, layers: Tuple[int, int, int, int], output_dim: int,
                  heads: int, input_resolution: int = 224, width: int = 64,
@@ -271,7 +277,7 @@ class ModifiedResNet(nn.Module):
         self.attnpool = AttentionPool2d(input_resolution // 32, w * 32, heads,
                                         output_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def tower_forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x``: ``[N, H, W, 3]`` -> ``[N, output_dim]``."""
         x = x.permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
@@ -407,12 +413,15 @@ class TransformerStack(nn.Module):
         return self.resblocks(x)
 
 
-class VisionTransformer(nn.Module):
+class VisionTransformer(GraphedTower):
     """Patch conv (no bias, stride = patch) -> class token first, then the
     positional embedding -> ``ln_pre`` -> pre-LN transformer -> ``ln_post``
     on token 0 -> ``@ proj`` (no bias). ``fast_softmax``, ``fp32_norms`` and
     ``int8_eval``: ``ResidualAttentionBlock``'s switches (the norms
     ``ln_pre`` and ``ln_post`` too)."""
+
+    graph_switches = ("int8_eval", "fast_softmax", "causal", "fp32",
+                      "elementwise_affine", "transposed")
 
     def __init__(self, input_resolution: int, patch_size: int, width: int,
                  layers: int, heads: int, output_dim: int,
@@ -432,7 +441,7 @@ class VisionTransformer(nn.Module):
         self.ln_post = FP32LayerNorm(width, eps=1e-5, fp32=fp32_norms)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def tower_forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x``: ``[N, H, W, 3]`` -> ``[N, output_dim]``."""
         x = self.conv1(x.permute(0, 3, 1, 2))               # [N, C, gh, gw]
         N, C = x.shape[:2]

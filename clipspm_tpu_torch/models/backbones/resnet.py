@@ -12,7 +12,9 @@ Frames are NHWC ``[N, H, W, 3]`` at the public functions and NCHW only
 inside the trunk (the permuted view keeps NHWC strides, which cuDNN runs as
 channels-last); the spatial output is NHWC ``[N, h, w, C]``. BatchNorm
 computes in fp32 whatever the compute dtype, so the trunk's output is fp32
-under bf16 autocast, as the JAX trunk's is.
+under bf16 autocast, as the JAX trunk's is. The trunk is a ``GraphedTower``
+(``models/tower_graph.py``): in evaluation on the card a call replays a CUDA
+graph of ``tower_forward``, the eager body.
 
 ``temporal_blocks`` gives the reference's experimental temporal ResNets:
 ``"bottleneck"`` a temporal-excitation ``Blk`` (``temporal_excitation.py``)
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..tower_graph import GraphedTower
 from .clip import FP32BatchNorm2d
 from .temporal_excitation import Blk
 
@@ -106,7 +109,7 @@ class TVBasicBlock(nn.Module):
         return F.relu(h + identity)
 
 
-class TorchResNet(nn.Module):
+class TorchResNet(GraphedTower):
     """ResNet trunk; ``output``: "spatial" -> ``[N, H/32, W/32, C]``,
     "pooled" -> ``[N, C]``.
 
@@ -116,6 +119,9 @@ class TorchResNet(nn.Module):
     stages 2 and 3 (``resnet50_2``). Frames then come in whole clips of
     ``seq_len``.
     """
+
+    graph_switches = ("fp32", "affine", "track_running_stats", "ceil_mode",
+                      "return_indices", "transposed")
 
     def __init__(self, arch: str = "resnet50", output: str = "spatial",
                  width: int = 64, temporal_blocks: str = "none",
@@ -155,7 +161,7 @@ class TorchResNet(nn.Module):
         mult = 1 if self.arch in BASIC_BLOCK_ARCHS else 4
         return self.width * 8 * mult
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def tower_forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x``: ``[N, H, W, 3]`` -> ``[N, h, w, C]`` or ``[N, C]``."""
         x = x.permute(0, 3, 1, 2)
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))

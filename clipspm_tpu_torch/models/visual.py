@@ -18,6 +18,7 @@ from ..ops import tags
 from ..utils.metrics import span
 from .backbones.clip import make_clip_visual  # noqa: F401 (re-export)
 from .backbones.resnet import TorchResNet
+from .tower_graph import last_mode
 
 # What each remat policy of the chunked train encode keeps across the
 # recompute, as the JAX package names it (clipspm_tpu/models/visual.py:
@@ -102,8 +103,12 @@ def fp32_context(device: torch.device):
 
 def _tower(backbone: nn.Module, frames: torch.Tensor) -> torch.Tensor:
     """One call of the tower, a ``model.tower`` span (in a remat chunk's
-    recompute too, on the thread that runs the backward)."""
-    with span("model.tower", frames=lambda: frames.shape[0]):
+    recompute too, on the thread that runs the backward) whose ``graph``
+    says how the call ran: ``replay``, ``capture`` or ``eager``
+    (``tower_graph.py``: a tower in evaluation on the card replays a CUDA
+    graph from inside its own call)."""
+    with span("model.tower", frames=lambda: frames.shape[0],
+              graph=last_mode):
         return backbone(frames)
 
 

@@ -14,7 +14,8 @@ The product of the codes, :func:`int8_mm`:
 - on the card, ``torch._int_mm`` (cuBLASLt's int8 tensor-core GEMM: the
   JAX package leaves this product to XLA, outside any Pallas kernel). A
   shape it refuses raises; nothing falls back to a float product. Each call
-  adds one to ``launches``;
+  adds one to ``launches``, and a tower's CUDA-graph replay the GEMMs it
+  holds (``models/tower_graph.py``);
 - on the CPU, the plain version :func:`int8_mm_plain`: the codes
   multiplied in float64, which is exact (``127 * 127 * K < 2**53``), so the
   card's int32 sums must equal it bit for bit.
